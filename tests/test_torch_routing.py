@@ -1,0 +1,190 @@
+"""Port routing (geometry, warps, the two kernel modules' plain versions) vs
+the JAX package on the CPU.  The CUDA kernels themselves are held against
+these plain versions on a card in tests/test_torch_kernels.py.
+
+Tolerances: `part_transforms` matrices rtol 1e-5 / atol 1e-4; norm warp
+atol 5e-5; composite planes and hand masks atol 5e-5 on every pixel whose
+oracle mask value lies farther than 1e-5 from 254.5/255 (dilated by the 5x5
+erosion for eroded parts).  The count of excluded pixels is asserted to be 0
+on the seeds used, so every pixel is compared.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from pasta_gan_tpu.data import geometry as jg
+from pasta_gan_tpu.data import warp as jw
+from pasta_gan_tpu.data.dataset import SyntheticUvitonDataset
+from pasta_gan_tpu.ops.matmul_warp import inv3x3 as jinv3x3
+from pasta_gan_tpu.ops.matmul_warp import warp_perspective_matmul
+from pasta_gan_tpu.ops.pallas_warp import warp_frame_to_parts_pallas_batched, warp_parts_composite_pallas
+from pasta_gan_tpu_torch.data import geometry as tg
+from pasta_gan_tpu_torch.data import warp as tw
+from pasta_gan_tpu_torch.ops import warp_kernels as wk
+from pasta_gan_tpu_torch.ops.warp_math import inv3x3, warp_coords
+
+from test_torch_kernels import ERODE, GROUPS, HANDS, _composite_inputs, _homographies, _norm_inputs
+
+TOL = 5e-5
+NEAR = 1e-5
+
+
+def _keypoints(n=4, seed=0):
+    ds = SyntheticUvitonDataset(num_samples=n, seed=seed)
+    kps = np.stack([ds[i]["keypoints"] for i in range(n)])
+    # knock out joints so every fallback branch of get_crop runs
+    kps[1, [9, 10], 2] = 0.0  # rknee, rankle
+    kps[2, 0, 2] = 0.0  # nose
+    kps[3, [12], 2] = 0.0  # lknee
+    return kps
+
+
+# ----------------------------------------------------------------- geometry
+
+
+@pytest.mark.parametrize("knee_fallbacks", [False, True])
+def test_part_geometry_matches_jax(knee_fallbacks):
+    kps = _keypoints()
+    q_j, v_j = jg.part_quads(kps, 256, knee_fallbacks=knee_fallbacks)
+    q_t, v_t = tg.part_quads(torch.from_numpy(kps), 256, knee_fallbacks=knee_fallbacks)
+    np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
+    np.testing.assert_allclose(q_t.numpy(), np.asarray(q_j), rtol=1e-5, atol=1e-4)
+    for a, b in zip(tg.part_transforms(torch.from_numpy(kps), 256, 64, 64, knee_fallbacks=knee_fallbacks),
+                    jg.part_transforms(kps, 256, 64, 64, knee_fallbacks=knee_fallbacks)):
+        np.testing.assert_allclose(a.numpy().astype(np.float32), np.asarray(b, np.float32), rtol=1e-5, atol=1e-4)
+
+
+def test_perspective_transform_and_inverse_match_jax():
+    rng = np.random.default_rng(1)
+    src = rng.uniform(0, 200, (5, 4, 2)).astype(np.float32)
+    dst = np.asarray(jg.dst_quad(64, 64))[None].repeat(5, 0)
+    M_t = tg.perspective_transform(torch.from_numpy(src), torch.from_numpy(dst))
+    M_j = jg.perspective_transform(src, dst)
+    np.testing.assert_allclose(M_t.numpy(), np.asarray(M_j), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(inv3x3(M_t).numpy(), np.asarray(jinv3x3(M_j)), rtol=1e-5, atol=1e-4)
+
+
+# -------------------------------------------------------------------- warps
+
+
+@pytest.mark.parametrize("border", ["replicate", "constant"])
+def test_warp_perspective_matches_jax_gather(border):
+    rng = np.random.default_rng(2)
+    img = rng.uniform(0, 1, (48, 40, 4)).astype(np.float32)
+    M = _homographies(rng, 1, 40, 24)[0]
+    ours = tw.warp_perspective(torch.from_numpy(img), torch.from_numpy(M), (24, 24), border)
+    ref = jw.warp_perspective(jnp.asarray(img), jnp.asarray(M), (24, 24), border)
+    np.testing.assert_allclose(ours.numpy(), np.asarray(ref), atol=TOL)
+
+
+def test_warp_coords_matches_jax():
+    M = _homographies(np.random.default_rng(3), 1, 64, 32)[0]
+    from pasta_gan_tpu.ops.matmul_warp import warp_coords as jwc
+
+    for a, b in zip(warp_coords(torch.from_numpy(M), (16, 20)), jwc(jnp.asarray(M), (16, 20))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-5)
+
+
+def test_erode_binary_matches_jax():
+    m = (np.random.default_rng(4).uniform(size=(3, 20, 24, 1)) > 0.2).astype(np.float32)
+    ours = wk.erode_binary(torch.from_numpy(m[..., 0]))
+    np.testing.assert_array_equal(ours.numpy(), np.asarray(jw.erode_binary(jnp.asarray(m)))[..., 0])
+
+
+# ------------------------------------------------------- norm_warp (kernel 1)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_norm_warp_reference_matches_jax_gather_and_pallas(seed):
+    src, M, valid, n0, hw = _norm_inputs(seed)
+    B, N = M.shape[:2]
+    minv = inv3x3(torch.from_numpy(M))
+    ours = wk.norm_warp(torch.from_numpy(src[0]), torch.from_numpy(src[1]), minv,
+                        torch.from_numpy(valid), n0, hw)  # CPU tensors: the plain version
+    assert tuple(ours.shape) == (B, N, 4) + hw
+    for b in range(B):
+        for p in range(N):
+            frame = src[0 if p < n0 else 1, b]
+            ref = np.asarray(jw._warp_parts_gather(jnp.asarray(frame), jnp.asarray(M[b, p : p + 1]), hw,
+                                                   "replicate"))[0]
+            np.testing.assert_allclose(ours[b, p].numpy(), ref.transpose(2, 0, 1) * valid[b, p], atol=TOL)
+    # the Pallas kernel itself (interpret mode), one source frame per launch like the TPU path
+    for s, parts in ((0, slice(0, n0)), (1, slice(n0, N))):
+        ref = warp_frame_to_parts_pallas_batched(
+            jnp.asarray(src[s]), jnp.asarray(M[:, parts]), hw, "replicate", valid=jnp.asarray(valid[:, parts]),
+            rows_per_tile=8, interpret=True, planar=True,
+        )
+        np.testing.assert_allclose(ours[:, parts].numpy(), np.asarray(ref) * valid[:, parts, None, None, None],
+                                   atol=TOL)
+
+
+# ------------------------------------------------------- composite (kernel 2)
+
+def _jax_separate_pass(srcs, M, valid, hw):
+    """route_patches_single's separate-pass composite, with the JAX functions."""
+    B, N = srcs.shape[:2]
+    ups, los, hands, masks = [], [], [], []
+    for b in range(B):
+        dn = jax.vmap(lambda s, m: warp_perspective_matmul(jnp.transpose(s, (1, 2, 0)), m, hw, "constant"))(
+            jnp.asarray(srcs[b]), jnp.asarray(M[b]))
+        dn = dn * jnp.asarray(valid[b])[:, None, None, None]
+        masks.append(np.asarray(dn[..., 3]))
+        sat = (dn[..., 3:] >= jw.MASK_SATURATION_THRESHOLD).astype(jnp.float32)
+        sat = jnp.stack([jw.erode_binary(sat[p]) if ERODE[p] else sat[p] for p in range(N)])
+        outs = [jnp.zeros(hw + (3,)), jnp.zeros(hw + (3,))]
+        for p in range(N):
+            v = sat[p] * valid[b, p]
+            outs[GROUPS[p]] = dn[p, ..., :3] * v + outs[GROUPS[p]] * (1 - v)
+        ups.append(np.asarray(outs[0]).transpose(2, 0, 1))
+        los.append(np.asarray(outs[1]).transpose(2, 0, 1))
+        hands.append(np.stack([np.asarray(sat[p, ..., 0]) * valid[b, p] for p in HANDS]))
+    return np.stack([np.stack(ups), np.stack(los)], 1), np.stack(hands), np.stack(masks)
+
+
+def _compared_pixels(masks):
+    """[B, H, W] bool of pixels no near-threshold mask value can influence."""
+    near = (np.abs(masks - jw.MASK_SATURATION_THRESHOLD) <= NEAR).astype(np.float32)  # [B, N, H, W]
+    t = torch.from_numpy(near)
+    ero = [p for p in range(len(ERODE)) if ERODE[p]]
+    t[:, ero] = torch.nn.functional.max_pool2d(t[:, ero], 5, stride=1, padding=2)
+    return ~(t.amax(1) > 0).numpy()
+
+
+@pytest.mark.parametrize("seed", [0, 3])  # seeds 1, 2 and 4 put a mask value within 1e-5 of the threshold
+def test_composite_reference_matches_jax_pipeline_and_pallas(seed):
+    srcs, M, valid, hw = _composite_inputs(seed)
+    g_ref, h_ref, masks = _jax_separate_pass(srcs, M, valid, hw)
+    keep = _compared_pixels(masks)
+    assert int((~keep).sum()) == 0, "near-threshold pixels on this seed; pick another"
+    g, h = wk.composite(torch.from_numpy(srcs), inv3x3(torch.from_numpy(M)), torch.from_numpy(valid),
+                        hw, GROUPS, ERODE, HANDS)  # CPU tensors: the plain version
+    np.testing.assert_allclose(g.numpy(), g_ref, atol=TOL)
+    np.testing.assert_allclose(h.numpy(), h_ref, atol=TOL)
+    g_p, h_p = warp_parts_composite_pallas(
+        jnp.asarray(srcs), jnp.asarray(M), jnp.asarray(valid > 0), hw, GROUPS, ERODE, HANDS,
+        rows_per_tile=8, interpret=True,
+    )
+    np.testing.assert_allclose(g.numpy(), np.asarray(g_p), atol=TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_p), atol=TOL)
+
+
+def test_route_patches_transfer_matches_jax():
+    ds = SyntheticUvitonDataset(num_samples=4)
+    gar, per = [ds[0], ds[1]], [ds[2], ds[3]]
+    g_img = np.stack([s["image"] for s in gar]).astype(np.float32) / 255
+    g_m = np.stack([s["upper_mask"] for s in gar]).astype(np.float32)
+    p_img = np.stack([s["image"] for s in per]).astype(np.float32) / 255
+    p_m = np.stack([s["lower_test_mask"] for s in per]).astype(np.float32)
+    args = [g_img * g_m, p_img * p_m, g_m, p_m, np.stack([s["keypoints"] for s in gar]),
+            np.stack([s["keypoints"] for s in per])]
+    ours = tw.route_patches_transfer_batch(*[torch.from_numpy(a) for a in args])
+    with jax.disable_jit():  # jit fusion reassociates the coordinate math (~3e-5 on patch values)
+        ref = jw.route_patches_transfer_batch(*[jnp.asarray(a) for a in args])
+    for name in ours._fields:
+        a, b = getattr(ours, name).numpy(), np.asarray(getattr(ref, name))
+        assert a.shape == b.shape, name
+        np.testing.assert_allclose(a.astype(np.float32), b.astype(np.float32), atol=TOL, err_msg=name)
