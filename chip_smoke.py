@@ -4,25 +4,38 @@
   python3 chip_smoke.py    # needs one NVIDIA GPU; the last line is the JSON verdict
 
 Phases, each fatal on failure:
-1. Build the routing kernels from `pasta_gan_tpu_torch/csrc/` with nvcc (one
+1. Build the four kernels from `pasta_gan_tpu_torch/csrc/` with nvcc (one
    process per source, all started together).
-2. Kernel phase, at the try-on path's batch-16 shapes: each kernel against
-   its plain PyTorch version on the card (fp32, TF32 off), with times from
-   CUDA events (L2 flushed before each launch), the byte/operation bound
-   (the bytes are the 32-byte sectors this run's taps reach) and, for the
-   norm warp, `grid_sample` as the library yardstick.
-3. Slice phase: a full-width GeneratorFull (channel_base 16384, channel_max
+2. Kernel phase.  The routing kernels at the try-on path's batch-16 shapes
+   and the FIR kernels at the training path's largest shapes (up2 pre-FIR
+   [16,128,128,128], down2 [32,64,256,256]), each against its plain PyTorch
+   version on the card (fp32 with TF32 off, and bf16), with times from CUDA
+   events (L2 flushed before each launch), the byte/operation bound and a
+   one-call library yardstick (`grid_sample`, depthwise
+   `conv_transpose2d` / `conv2d`); the FIR kernels also check their adjoint
+   identity.
+3. Serving phase: a full-width GeneratorFull (channel_base 16384, channel_max
    512, 256px) drawn from a seeded generator is saved as a snapshot and
    served through `pasta_gan_tpu_torch.cli.test.main` for 16 synthetic pairs;
-   both kernels' launch counters must rise during that run.  Then the card's
+   every kernel's launch counter must rise during that run.  Then the card's
    result is held against the port's CPU path on a small input, the bf16
    forward against the fp32 one at batch 16, and the end-to-end try-on
    (routing + bf16 forward) is timed at batch 16 and 1, each step also under
    `torch.profiler` (device ms, busy share, device operations, top ones).
-Every number printed is tagged with the card's name and power limit.
+4. Training phase: `pasta_gan_tpu_torch.cli.train.main` trains the
+   full-width `fashion` G and D (random init from seed 0, He-initialized
+   VGG19) for 4 steps at batch 32 in bf16, R1 on the first, on 64 synthetic
+   samples; losses must be finite, G, D and G_ema must move and all four
+   kernels must launch.  It prints the Gmain+Dmain and R1 step times,
+   sec/kimg, peak memory and a `torch.profiler` breakdown of one step.  Then
+   one fp32 training step (Gmain, Dmain, R1) at a thin width is held against
+   the same step on the port's CPU path.
+Every number printed is tagged with the card's name and power limit.  The
+`kernels` line's launch counts are the training run's.
 """
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -34,6 +47,15 @@ PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 TOL = 5e-5  # routing tolerance (atol)
 NEAR = 1e-5  # pixels whose plain mask value lies this close to the threshold are not compared
+FIR_F32_TOL = 1e-6  # the FIR kernels repeat the plain version's rounded operations in its order
+BF16_REL = 2.0 ** -7  # 2 ulp of bf16
+TRAIN_STEPS, TRAIN_BATCH = 4, 32
+# card vs CPU training step (tests/test_torch_train.py's tolerances)
+LOSS_RTOL, GRAD_REL_L2, STEP_REL_L2 = 1e-4, 1e-3, 1e-2
+REPLACES = {"norm_warp": "pasta_gan_tpu/ops/pallas_warp.py:172",
+            "composite": "pasta_gan_tpu/ops/pallas_warp.py:480",
+            "up2": "pasta_gan_tpu/ops/pallas_upfirdn.py:60",
+            "down2": "pasta_gan_tpu/ops/pallas_upfirdn.py:134"}
 # bf16 vs fp32 forward, ||bf16 - fp32|| / ||fp32|| of the finetune image.  bf16
 # keeps 8 mantissa bits (2^-8 = 0.4 % per rounding); with this script's
 # snapshot init at channel_base 512 on the CPU a correct bf16 path gives 0.031,
@@ -248,16 +270,84 @@ def kernel_phase(torch, wk, tag):
                f"{n_excl} near-threshold pixels not compared"),
     )
     for name, res in results.items():
-        res["bound_ms"] = max(res["bytes"] / PEAK_BYTES_PER_S, res["ops"] / PEAK_FP32_FLOPS) * 1e3
-        res["bound_by"] = "bytes" if res["bytes"] / PEAK_BYTES_PER_S >= res["ops"] / PEAK_FP32_FLOPS else "operations"
-        lib = "null" if res["library_ms"] is None else f"{res['library_ms']:.4f}"
-        print(f"kernel {name}: max_abs_err={res['err']:.3g} kernel_ms={res['ms']:.4f} "
-              f"plain_ms={res['plain_ms']:.4f} bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
-              f"library_ms={lib}; {res['extra']} [{tag}]", flush=True)
+        report_kernel(name, res, tag)
     return results
 
 
-def slice_phase(torch, wk, tag, tmp):
+def report_kernel(label, res, tag):
+    """Add the bound (bytes over 3.35 TB/s or fp32 operations over 67 TFLOP/s,
+    the larger) to `res` and print the kernel's line."""
+    res["bound_ms"] = max(res["bytes"] / PEAK_BYTES_PER_S, res["ops"] / PEAK_FP32_FLOPS) * 1e3
+    res["bound_by"] = "bytes" if res["bytes"] / PEAK_BYTES_PER_S >= res["ops"] / PEAK_FP32_FLOPS else "operations"
+    lib = "null" if res["library_ms"] is None else f"{res['library_ms']:.4f}"
+    print(f"kernel {label}: max_abs_err={res['err']:.3g} kernel_ms={res['ms']:.4f} "
+          f"plain_ms={res['plain_ms']:.4f} bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
+          f"library_ms={lib}; {res['extra']} [{tag}]", flush=True)
+
+
+def fir_kernel_phase(torch, tag):
+    """up2 (extend 0 and 1) at the pre-FIR shape [16,128,128,128] and down2
+    (pad 1 and 0) at the D skip's [32,64,256,256], fp32 and bf16: the kernel
+    against its plain version on the card, the adjoint identity, times, the
+    byte bound and the depthwise cuDNN call that computes the same function.
+    Returns the results of the main path's cases (up2 extend 1 bf16, down2
+    pad 1 bf16) under "up2" and "down2"."""
+    from pasta_gan_tpu_torch.ops import upfirdn_kernels as uk
+
+    F = torch.nn.functional
+    g = torch.Generator(device="cuda").manual_seed(0)
+    taps = torch.tensor([1.0, 3.0, 3.0, 1.0], device="cuda") / 8.0
+    filt = torch.outer(taps, taps)
+    results = {}
+    specs = [("up2", e, dt, (16, 128, 128, 128)) for e in (1, 0) for dt in (torch.bfloat16, torch.float32)]
+    specs += [("down2", p, dt, (32, 64, 256 + 2 * (1 - p), 256 + 2 * (1 - p)))
+              for p in (1, 0) for dt in (torch.bfloat16, torch.float32)]
+    for kind, arg, dt, shape in specs:
+        x = torch.randn(shape, generator=g, device="cuda").to(dt)
+        C = shape[1]
+        if kind == "up2":
+            run = lambda: uk.up2(x, extend=arg)  # noqa: E731
+            plain = lambda: uk.up2_reference(x, arg)  # noqa: E731
+            w = (filt * 4.0).to(dt).expand(C, 1, 4, 4).contiguous()
+            library = lambda: F.conv_transpose2d(x, w, stride=2, padding=1 - arg, groups=C)  # noqa: E731
+            adjoint = lambda gr: uk.down2(gr, pad=1 - arg, gain=4.0)  # noqa: E731
+            flops_per_out = 10
+        else:
+            run = lambda: uk.down2(x, pad=arg)  # noqa: E731
+            plain = lambda: uk.down2_reference(x, arg)  # noqa: E731
+            w = filt.to(dt).expand(C, 1, 4, 4).contiguous()
+            library = lambda: F.conv2d(x, w, stride=2, padding=arg, groups=C)  # noqa: E731
+            adjoint = lambda gr: uk.up2(gr, extend=1 - arg, gain=0.25)  # noqa: E731
+            flops_per_out = 36
+        y, yp, yl = run(), plain(), library()
+        torch.cuda.synchronize()
+        assert y.shape == yp.shape == yl.shape and y.dtype == dt, (kind, y.shape, yp.shape, yl.shape)
+        err = float((y.float() - yp.float()).abs().max())
+        if dt == torch.float32:
+            assert err <= FIR_F32_TOL, f"{kind} fp32 disagrees with its plain version: {err}"
+        else:
+            assert torch.allclose(y.float(), yp.float(), rtol=BF16_REL, atol=1e-6), \
+                f"{kind} bf16 disagrees with its plain version beyond 2 ulp: {err}"
+        lib_err = float((yl.float() - yp.float()).abs().max())
+        gr = torch.randn(y.shape, generator=g, device="cuda").to(dt)
+        # <y, g> = <x, adjoint(g)>, the difference over ||y|| ||g|| (bf16 keeps 8 bits)
+        lhs = float((y.double() * gr.double()).sum())
+        rhs = float((x.double() * adjoint(gr).double()).sum())
+        adj = abs(lhs - rhs) / float(y.double().norm() * gr.double().norm())
+        assert adj <= (1e-6 if dt == torch.float32 else 1e-3), f"{kind} adjoint identity off by {adj}"
+        del yp, yl, gr
+        label = f"{kind}({'extend' if kind == 'up2' else 'pad'}={arg}, {str(dt)[6:]}, {list(shape)})"
+        res = dict(err=err, ms=cuda_time_ms(torch, run), plain_ms=cuda_time_ms(torch, plain, iters=5),
+                   library_ms=cuda_time_ms(torch, library), bytes=nbytes(x, y), ops=y.numel() * flops_per_out,
+                   extra=f"adjoint identity relative error {adj:.3g}; library max |diff| vs plain {lib_err:.3g}")
+        report_kernel(label, res, tag)
+        if dt == torch.bfloat16 and arg == 1:
+            results[kind] = res
+        del x, y
+    return results
+
+
+def slice_phase(torch, wk, ck, tag, tmp):
     from pasta_gan_tpu_torch.cli import test as cli
     from pasta_gan_tpu_torch.data.dataset import (
         SyntheticUvitonDataset, collate, prepare_tryon_batch, tryon_warp_inputs,
@@ -271,12 +361,12 @@ def slice_phase(torch, wk, tag, tmp):
     save_snapshot(snap, gen.state_dict(), 0.1 * torch.randn(512, generator=g), {"model": gen.config})
     outdir = os.path.join(tmp, "tryon")
 
-    wk.reset_launch_counts()
+    ck.reset_launch_counts()
     t0 = time.perf_counter()
     written = cli.main(["--network", snap, "--synthetic", "16", "--batchsize", "16", "--outdir", outdir])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
-    launches = {k: v.launches for k, v in wk.KERNELS.items()}
+    launches = ck.launch_counts()
     print(f"cli.test: {len(written)} images in {cli_s:.2f} s (first call, includes loading); "
           f"launches {launches} [{tag}]", flush=True)
     assert len(written) == 16 and all(os.path.getsize(p) > 1000 for p in written), "missing try-on PNGs"
@@ -284,7 +374,7 @@ def slice_phase(torch, wk, tag, tmp):
         with open(p, "rb") as f:
             assert f.read(8) == b"\x89PNG\r\n\x1a\n", p
     for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched on the main path"
+        assert n > 0, f"kernel {name} was not launched on the serving path"
 
     # ---- the card's result against the port's CPU path on a small input
     ds = SyntheticUvitonDataset(num_samples=4, seed=3)
@@ -400,6 +490,145 @@ def device_profile(torch, fn, iters=5, top=8):
     return (device_ms or None), n_ops, [(op, us / 1e3 / iters, n / iters) for op, (us, n) in ranked]
 
 
+def train_phase(torch, ck, tag, tmp):
+    """cli.train at full width: TRAIN_STEPS steps at batch TRAIN_BATCH, bf16,
+    R1 on the first.  Returns the kernels' launch counts of that run."""
+    from pasta_gan_tpu_torch.cli import train as cli_train
+    from pasta_gan_tpu_torch.data.dataset import SyntheticUvitonDataset, collate, prepare_train_batch
+
+    # cuDNN's fp32 convolutions (the VGG19 features, D's epilogue) run as a
+    # user of cli.train gets them: TF32, PyTorch's default
+    torch.backends.cudnn.allow_tf32 = True
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = cli_train.main(["--outdir", os.path.join(tmp, "runs"), "--synthetic", "64", "--batch", str(TRAIN_BATCH),
+                          "--aug", "noaug", "--dtype", "bfloat16", "--seed", "0",
+                          "--kimg", str(TRAIN_STEPS * TRAIN_BATCH / 1000)])
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = ck.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trainer, state, records = out["trainer"], out["state"], out["records"]
+    print(f"cli.train: {state.step} steps at batch {TRAIN_BATCH} in {wall_s:.1f} s (includes drawing 64 "
+          f"synthetic samples on the host); launches {launches}; peak {peak_gb:.2f} GB allocated [{tag}]", flush=True)
+    assert state.step == TRAIN_STEPS and len(records) == TRAIN_STEPS
+    assert "Loss/r1_penalty" in records[0], "R1 did not run on the first step"
+    for r in records:
+        bad = {k: v for k, v in r.items() if not math.isfinite(v)}
+        assert not bad, f"non-finite training stats: {bad}"
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} was not launched on the training path"
+    init = trainer.init_state(torch.Generator().manual_seed(0))  # what the run started from
+    moved = {name: any(not torch.equal(a, b) for a, b in zip(getattr(state, name).parameters(), ref.parameters()))
+             for name, ref in (("G", init.G), ("D", init.D), ("G_ema", init.G))}
+    assert all(moved.values()), f"parameters did not move: {moved}"
+    del init
+
+    main_ms = [r["Timing/Gmain_Dmain"] * 1e3 for r in records[1:]]
+    data_ms = [r["Timing/data"] * 1e3 for r in records[1:]]
+    ds = SyntheticUvitonDataset(num_samples=64, seed=0)
+    batch = prepare_train_batch(collate([ds[i] for i in range(TRAIN_BATCH)]), torch.Generator().manual_seed(1))
+    r1_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        state, r1 = trainer.d_r1_step(state, batch)
+        float(r1["Loss/r1_penalty"])
+        r1_ms.append((time.perf_counter() - t1) * 1e3)
+    med = statistics.median
+    step_ms = med(data_ms) + med(main_ms) + med(r1_ms) / (trainer.config.d_reg_interval or 1)
+    print(f"training step (full width, batch {TRAIN_BATCH}, bf16): Gmain+Dmain median {med(main_ms):.1f} ms "
+          f"(steps 2-{TRAIN_STEPS}: {', '.join(f'{t:.1f}' for t in main_ms)}; step 1 with R1 and warm-up "
+          f"{records[0]['Timing/Gmain_Dmain'] * 1e3:.1f} ms); R1 median {med(r1_ms):.1f} ms "
+          f"({', '.join(f'{t:.1f}' for t in r1_ms)}); data+routing median {med(data_ms):.1f} ms [{tag}]", flush=True)
+    print(f"sec/kimg: {step_ms / TRAIN_BATCH:.3f} (data + Gmain+Dmain + R1/16, medians); the loop's last tick "
+          f"{last_tick_sec_per_kimg(out['run_dir']):.3f} [{tag}]", flush=True)
+    step_launches = {}
+    for name, fn, top_n in (("Gmain+Dmain", lambda: trainer.train_step(state, batch), 10),
+                            ("R1", lambda: trainer.d_r1_step(state, batch), 6)):
+        device_ms, n_ops, top = device_profile(torch, fn, iters=1, top=top_n)
+        # the host time and launches of the same step run once more, unprofiled
+        torch.cuda.synchronize()
+        ck.reset_launch_counts()
+        t1 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t1) * 1e3
+        step_launches[name] = ck.launch_counts()
+        busy = "not measured" if device_ms is None else f"{device_ms / host_ms:.3f}"
+        dev = "not measured (no device time in the trace)" if device_ms is None else f"{device_ms:.1f} ms"
+        print(f"profile {name} step (batch {TRAIN_BATCH}): host {host_ms:.1f} ms, device {dev}, busy {busy}, "
+              f"{n_ops:.0f} device ops [{tag}]", flush=True)
+        for op, op_ms, n in top:
+            print(f"    {op_ms:9.3f} ms {n:7.1f}x  {op[:100]}", flush=True)
+    print(f"launches per step {step_launches} [{tag}]", flush=True)
+    torch.backends.cudnn.allow_tf32 = False
+    return launches
+
+
+def last_tick_sec_per_kimg(run_dir):
+    with open(os.path.join(run_dir, "stats.jsonl")) as f:
+        return json.loads(f.read().splitlines()[-1])["Timing/sec_per_kimg"]
+
+
+def train_card_vs_cpu(torch, tag):
+    """One fp32 training step (Gmain and Dmain gradients, train_step, d_r1_step)
+    at a thin width (channel_base 512, channel_max 32, batch 4, noise off,
+    no VGG, Adam eps 1e-3 as in tests/test_torch_train.py) on the card against
+    the port's CPU path, from the same weights and the same batch."""
+    import copy
+
+    from pasta_gan_tpu_torch.data.dataset import SyntheticUvitonDataset, collate, erasure_draws, prepare_train_batch
+    from pasta_gan_tpu_torch.runtime.config import from_preset, replace_nested
+    from pasta_gan_tpu_torch.train.step import GANTrainer
+
+    cfg = replace_nested(from_preset("fashion", batch=4), **{
+        "model.channel_base": 512, "model.channel_max": 32, "model.use_noise": False, "loss.vgg_weight": 0.0,
+        "ada.enabled": False, "g_opt.eps": 1e-3, "d_opt.eps": 1e-3})
+    ds = SyntheticUvitonDataset(num_samples=4, seed=5)
+    b_cpu = prepare_train_batch(collate([ds[i] for i in range(4)]), device="cpu",
+                                draws=erasure_draws(4, torch.Generator().manual_seed(2)))
+    b_gpu = {k: v.cuda() for k, v in b_cpu.items()}
+    tc, tg = GANTrainer(cfg, device="cpu"), GANTrainer(cfg, device="cuda")
+    sc = tc.init_state(torch.Generator().manual_seed(1))
+    sg = tg.init_state(G=copy.deepcopy(sc.G), D=copy.deepcopy(sc.D))
+
+    worst = 0.0
+    for fn in (lambda t, s: (lambda b: t.g_loss_fn(s.G, s.D, b), list(s.G.parameters())),
+               lambda t, s: (lambda b: t.d_loss_fn(s.D, s.G, b), list(s.D.parameters()))):
+        (lc, pc), (lg, pg) = fn(tc, sc), fn(tg, sg)
+        gc, _ = tc._grads_with_accum(lc, pc, b_cpu)
+        gg, _ = tg._grads_with_accum(lg, pg, b_gpu)
+        floor = 1e-6 * max(float(g.norm()) for g in gc)
+        for a, b in zip(gg, gc):
+            # a gradient that vanishes in exact arithmetic (a bias in front of an
+            # InstanceNorm) is held to the floor, the others to GRAD_REL_L2
+            err, allowed = float((a.cpu() - b).norm()), GRAD_REL_L2 * float(b.norm()) + floor
+            assert err <= allowed, f"gradient on the card differs: {err} vs {float(b.norm())}"
+            worst = max(worst, err / allowed)
+
+    before = {n: {k: v.clone() for k, v in getattr(sc, n).state_dict().items()} for n in ("G", "D")}
+    stats = []
+    for t, s, b in ((tc, sc, b_cpu), (tg, sg, b_gpu)):
+        s, st = t.train_step(s, b)
+        s, r1 = t.d_r1_step(s, b)
+        stats.append({k: float(v) for k, v in {**st, **r1}.items()})
+    for k, v in stats[0].items():
+        assert abs(stats[1][k] - v) <= LOSS_RTOL * abs(v) + 1e-6, f"{k}: card {stats[1][k]} vs CPU {v}"
+    step_errs = {}
+    for n in ("G", "D"):
+        sd_c, sd_g = getattr(sc, n).state_dict(), getattr(sg, n).state_dict()
+        dc = torch.cat([(sd_c[k] - before[n][k]).flatten() for k in sorted(sd_c)])
+        dg = torch.cat([(sd_g[k].cpu() - before[n][k]).flatten() for k in sorted(sd_c)])
+        step_errs[n] = float((dg - dc).norm() / dc.norm())
+        assert step_errs[n] <= STEP_REL_L2, f"{n} step on the card differs from the CPU's: {step_errs[n]}"
+    print(f"card vs CPU training step (fp32, thin, batch 4): worst gradient difference {worst:.3g} of its "
+          f"allowance ({GRAD_REL_L2} relative L2, or 1e-6 of the largest gradient's norm), G/D step relative L2 {step_errs['G']:.3g}/{step_errs['D']:.3g} "
+          f"(limit {STEP_REL_L2}), r1 penalty card {stats[1]['Loss/r1_penalty']:.6g} CPU "
+          f"{stats[0]['Loss/r1_penalty']:.6g} [{tag}]", flush=True)
+
+
 def main():
     import torch
 
@@ -407,6 +636,7 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is false; this script needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pasta_gan_tpu_torch.ops import cuda_kernels as ck
     from pasta_gan_tpu_torch.ops import warp_kernels as wk
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -416,7 +646,7 @@ def main():
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; {torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    reports = wk.build_kernels()
+    reports = ck.build_kernels()
     print(f"built {sorted(reports) or 'nothing (cached)'} in {time.perf_counter() - t0:.1f} s", flush=True)
     for name, log in reports.items():
         for line in log.splitlines():
@@ -424,18 +654,21 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     results = kernel_phase(torch, wk, tag)
+    results.update(fir_kernel_phase(torch, tag))
     with tempfile.TemporaryDirectory() as tmp:
-        launches = slice_phase(torch, wk, tag, tmp)
+        serve_launches = slice_phase(torch, wk, ck, tag, tmp)
+        train_launches = train_phase(torch, ck, tag, tmp)
+    train_card_vs_cpu(torch, tag)
 
-    replaces = {"norm_warp": "pasta_gan_tpu/ops/pallas_warp.py:172",
-                "composite": "pasta_gan_tpu/ops/pallas_warp.py:480"}
     kernels = [
-        {"name": name, "route": "cuda", "source": f"pasta_gan_tpu_torch/csrc/{wk.KERNELS[name].source}",
-         "replaces": replaces[name], "launches": launches[name], "max_abs_err": res["err"],
+        {"name": name, "route": "cuda", "source": f"pasta_gan_tpu_torch/csrc/{ck.KERNELS[name].source}",
+         "replaces": REPLACES[name], "launches": train_launches[name], "max_abs_err": res["err"],
          "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-         "bound_by": res["bound_by"], "library_ms": res["library_ms"]}
+         "bound_by": res["bound_by"], "library_ms": res["library_ms"],
+         "launches_serving": serve_launches[name]}
         for name, res in results.items()
     ]
+    assert sorted(k["name"] for k in kernels) == sorted(ck.KERNELS), "a kernel is missing from the kernels line"
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

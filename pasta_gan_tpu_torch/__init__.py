@@ -2,8 +2,10 @@
 
 The JAX package beside this one is the reference; every module here keeps its
 counterpart's module path and its public NHWC layouts, so tests feed the same
-numpy inputs to both.  The two patch-routing kernels of the 256px try-on path
-are hand-written CUDA (`csrc/`, bound in `ops/warp_kernels.py`).
+numpy inputs to both.  The two patch-routing kernels and the two 2x FIR
+resampling kernels are hand-written CUDA (`csrc/`, declared, built and
+counted in `ops/cuda_kernels.py`, bound in `ops/warp_kernels.py` and
+`ops/upfirdn_kernels.py`).
 
 Entry points take `device` (default "cuda") and raise when CUDA is absent and
 the CPU was not asked for explicitly.

@@ -1,0 +1,115 @@
+"""Training CLI (counterpart of `pasta_gan_tpu/cli/train.py`).
+
+Trains the 256px GeneratorFull against the resnet Discriminator on one card,
+with `--aug noaug` (ADA is the next training slice), bf16 compute over fp32
+master weights by default, and the losses of record (L1 40, VGG 40, mask 20,
+R1 gamma from the preset, R1 every 16 steps):
+
+  python -m pasta_gan_tpu_torch.cli.train --outdir ./runs --synthetic 64 \\
+      --cfg fashion --batch 32 --kimg 0.128 --aug noaug
+
+`--kimg` may be fractional (0.128 kimg at batch 32 is 4 steps).  The run
+directory gets training_options.json, stats.jsonl, a network snapshot of
+G_ema (servable by `pasta_gan_tpu_torch.cli.test --network`) and
+train-state-latest.pt (for `--resume`).  Without `--vgg_ckpt` (a
+torchvision vgg19 state_dict already on disk) the perceptual loss uses a
+He-initialized VGG19; nothing is downloaded.  The real dataset (`--data`)
+is not read yet: `--synthetic N` is required.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+
+import torch
+
+from .. import resolve_device
+
+
+def make_run_dir(outdir: str, desc: str) -> str:
+    """NNNNN-desc run-dir numbering (reference train_wo_flow_fullbody.py:525-532)."""
+    os.makedirs(outdir, exist_ok=True)
+    prev = [int(m.group(1)) for d in os.listdir(outdir) if (m := re.match(r"^(\d+)-", d))]
+    run_dir = os.path.join(outdir, f"{max(prev, default=-1) + 1:05d}-{desc}")
+    os.makedirs(run_dir)
+    return run_dir
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("--outdir", required=True)
+    p.add_argument("--synthetic", type=int, default=0, help="train on N synthetic samples (required for now)")
+    p.add_argument("--cfg", default="fashion", help="config preset (runtime/config.py:CFG_SPECS)")
+    p.add_argument("--batch", type=int, default=None, help="global batch (default: the preset's)")
+    p.add_argument("--kimg", type=float, default=None, help="thousands of images to train on")
+    p.add_argument("--fmaps", type=float, default=None, help="channel_base multiplier override (x 32768)")
+    p.add_argument("--accum", type=int, default=None,
+                   help="gradient-accumulation microbatches per phase; must divide the batch")
+    p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"],
+                   help="compute dtype (fp32 master weights either way)")
+    p.add_argument("--aug", default="noaug", choices=["ada", "noaug", "fixed"])
+    p.add_argument("--l1_weight", type=float, default=40.0)
+    p.add_argument("--vgg_weight", type=float, default=40.0)
+    p.add_argument("--mask_weight", type=float, default=20.0)
+    p.add_argument("--pl_weight", type=float, default=0.0)
+    p.add_argument("--contextual_weight", type=float, default=0.0)
+    p.add_argument("--vgg_ckpt", default=None, help="torchvision vgg19 state_dict file on disk")
+    p.add_argument("--resume", default=None, help="a train-state checkpoint of this package (train-state-*.pt)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    args = p.parse_args(argv)
+
+    if args.aug != "noaug":
+        raise SystemExit(f"--aug {args.aug}: ADA augmentation is the next training slice of the port "
+                         "(train/augment.py, ops/shear_warp.py); use --aug noaug")
+    if args.pl_weight > 0:
+        raise SystemExit("--pl_weight > 0: path-length regularization (g_pl_step) is a later slice of the port")
+    if args.contextual_weight > 0:
+        raise SystemExit("--contextual_weight > 0: the contextual loss is a later slice of the port")
+    if args.synthetic <= 0:
+        raise SystemExit("--synthetic N is required: the real dataset (--data) is not read yet")
+    device = resolve_device(args.device)
+
+    from ..data.dataset import SyntheticUvitonDataset
+    from ..runtime.config import from_preset, replace_nested
+    from ..train.loop import training_loop
+    from ..train.vgg import init_vgg19, load_torch_vgg19
+
+    config = from_preset(args.cfg, batch=args.batch)
+    overrides = {
+        "loss.l1_weight": args.l1_weight, "loss.vgg_weight": args.vgg_weight,
+        "loss.mask_weight": args.mask_weight, "loss.pl_weight": args.pl_weight,
+        "loss.contextual_weight": args.contextual_weight, "ada.enabled": False,
+        "random_seed": args.seed, "compute_dtype": args.dtype,
+    }
+    if args.fmaps is not None:
+        overrides["model.channel_base"] = int(args.fmaps * 32768)
+    if args.accum is not None:
+        if config.batch_size % args.accum:
+            raise SystemExit(f"--accum {args.accum} must divide --batch {config.batch_size}")
+        overrides["accum_steps"] = args.accum
+    config = replace_nested(config, **overrides)
+
+    vgg = None
+    if config.loss.vgg_weight > 0:
+        if args.vgg_ckpt:
+            if not os.path.exists(args.vgg_ckpt):
+                raise SystemExit(f"--vgg_ckpt {args.vgg_ckpt}: no such file (nothing is downloaded)")
+            vgg = load_torch_vgg19(args.vgg_ckpt, device)
+            print(f"loaded VGG19 weights from {args.vgg_ckpt}")
+        else:
+            print("WARNING: no --vgg_ckpt; the perceptual loss uses a randomly initialized VGG19")
+            vgg = init_vgg19(torch.Generator().manual_seed(0), device)
+
+    run_dir = make_run_dir(args.outdir, f"{args.cfg}-batch{config.batch_size}-synthetic")
+    print(f"run dir: {run_dir}; device: {device}")
+    dataset = SyntheticUvitonDataset(num_samples=args.synthetic, seed=args.seed)
+    trainer, state, records = training_loop(run_dir, dataset, config, device=device, vgg=vgg,
+                                            resume=args.resume, total_kimg=args.kimg)
+    return {"run_dir": run_dir, "trainer": trainer, "state": state, "records": records}
+
+
+if __name__ == "__main__":
+    main()

@@ -1,16 +1,17 @@
-"""Host samples and the device-side try-on batch.
+"""Host samples and the device-side try-on and training batches.
 
 Counterpart of `pasta_gan_tpu/data/dataset.py`: host code builds per-sample
 numpy dicts (image, stickman, keypoints, parsing masks); `prepare_tryon_batch`
-moves a collated batch to the device and runs the patch routing there.
+and `prepare_train_batch` move a collated batch to the device and run the
+patch routing there.
 
-This slice serves the synthetic fixture only: decoding the real dataset's
+The port reads the synthetic fixture only: decoding the real dataset's
 JPEG/PNG files (`load_sample`) waits for a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -18,7 +19,7 @@ import torch
 from .. import resolve_device
 from . import masks as masks_mod
 from . import stickman
-from .warp import route_patches_transfer_batch, transfer_warp_inputs
+from .warp import route_patches_batch, route_patches_transfer_batch, transfer_warp_inputs
 
 
 def pad_to_square(img: np.ndarray, value: int) -> tuple[np.ndarray, int]:
@@ -47,6 +48,7 @@ class SyntheticUvitonDataset:
         self.n = num_samples
         self.res = resolution
         self.seed = seed
+        self._cache: Dict[int, Dict[str, np.ndarray]] = {}  # drawing is slow host numpy work; draw once
 
     def __len__(self):
         return self.n
@@ -58,6 +60,11 @@ class SyntheticUvitonDataset:
         return kps
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        if idx not in self._cache:
+            self._cache[idx] = self._draw(idx)
+        return self._cache[idx]
+
+    def _draw(self, idx: int) -> Dict[str, np.ndarray]:
         rng = np.random.default_rng(self.seed * 100003 + idx)
         kps = self._keypoints(rng)
         parsing = np.zeros((256, 192), np.uint8)
@@ -155,4 +162,59 @@ def prepare_tryon_batch(person, garment, box_factor: int = 2, device="cuda") -> 
         "denorm_upper_mask": denorm_upper_mask,
         "denorm_lower_mask": denorm_lower_mask,
         "person_img": p_real,
+    }
+
+
+def erasure_draws(batch_size: int, generator: Optional[torch.Generator] = None):
+    """The three uniform draws of the random erasure, [B,1,1,1], [B,4,1,1,1]
+    and [B,1,1,1], from `generator` (a CPU generator)."""
+    B = batch_size
+    return (torch.rand((B, 1, 1, 1), generator=generator), torch.rand((B, 4, 1, 1, 1), generator=generator),
+            torch.rand((B, 1, 1, 1), generator=generator))
+
+
+def prepare_train_batch(host_batch, generator: Optional[torch.Generator] = None, box_factor: int = 2,
+                        device="cuda", draws=None) -> Dict[str, torch.Tensor]:
+    """Collated host samples -> the train-step batch, the heavy work on `device`.
+
+    Normalization to [-1, 1], patch self-routing, the random hand / ACGPN
+    erasure of the denormalized garments (hand masks kept with p 0.4, then
+    each with p 0.5; the ACGPN mask with p 0.9), the 6-channel pose + head
+    conditioning and the 42-channel style input.  The erasure's uniform draws
+    come from `generator`, or are passed as `draws` (see `erasure_draws`).
+    Float32 NHWC tensors, `gt_parsing` int64 [B, H, W]."""
+    dev = resolve_device(device)
+
+    def f32(k):
+        return torch.as_tensor(host_batch[k], device=dev).float()
+
+    image = f32("image") / 255.0  # [B, 256, 256, 3] in [0, 1]
+    upper_mask, lower_mask = f32("upper_mask"), f32("lower_mask")
+    routed = route_patches_batch(image * upper_mask, image * lower_mask, upper_mask, lower_mask, f32("keypoints"),
+                                 box_factor=box_factor)
+
+    u_hands, u_sel, u_acgpn = (torch.as_tensor(d, device=dev).float()
+                               for d in (draws if draws is not None else erasure_draws(image.shape[0], generator)))
+    use_hands = (u_hands < 0.4).float()
+    hand_sel = (u_sel < 0.5).float()
+    hand_mask = (routed.denorm_hand_masks * hand_sel).sum(dim=1) * use_hands
+    use_acgpn = (u_acgpn < 0.9).float()
+    erase = ((hand_mask + f32("acgpn_mask") * use_acgpn) > 0).float()
+
+    denorm_upper = routed.denorm_upper_img * (1.0 - erase)
+    denorm_lower = routed.denorm_lower_img * (1.0 - erase)
+    real = image * 2.0 - 1.0
+    retain = f32("retain_mask")
+    head = retain * real - (1.0 - retain)
+    pose = f32("pose") / 127.5 - 1.0
+    return {
+        "real_img": real,
+        "style_input": torch.cat([routed.norm_img, routed.norm_img_lower], dim=-1) * 2.0 - 1.0,
+        "retain": head,
+        "pose": torch.cat([pose, head], dim=-1),
+        "denorm_upper_img": denorm_upper * 2.0 - 1.0,
+        "denorm_lower_img": denorm_lower * 2.0 - 1.0,
+        "denorm_upper_mask": (denorm_upper.sum(-1, keepdim=True) > 0).float(),
+        "denorm_lower_mask": (denorm_lower.sum(-1, keepdim=True) > 0).float(),
+        "gt_parsing": torch.as_tensor(host_batch["gt_parsing"], device=dev).long(),
     }

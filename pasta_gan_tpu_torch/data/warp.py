@@ -10,8 +10,11 @@ Counterpart of `pasta_gan_tpu/data/warp.py` (the reference's per-sample
   (`== 255` on uint8, here >= 254.5/255);
 * parts composite in order, later parts overwriting earlier ones.
 
-On CUDA tensors the NORM warps run as one `norm_warp` kernel launch and the
-DENORM + erode + composite as one `composite` launch (ops/warp_kernels.py); on
+Two routes share the kernels: the unpaired try-on route
+(`route_patches_transfer_batch`) and the training path's self-routing
+(`route_patches_batch`).  On CUDA tensors the NORM warps run as one
+`norm_warp` kernel launch and the DENORM + erode + composite as one
+`composite` launch (ops/warp_kernels.py); on
 CPU tensors the same wrappers run their plain PyTorch versions.
 """
 
@@ -36,7 +39,9 @@ __all__ = [
     "MASK_SATURATION_THRESHOLD",
     "RoutedPatches",
     "erode_binary",
+    "route_patches_batch",
     "route_patches_transfer_batch",
+    "self_warp_inputs",
     "transfer_warp_inputs",
     "warp_perspective",
 ]
@@ -73,6 +78,35 @@ def _stack_ch(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 4, 1, 2).reshape(B, h, w, P * C)
 
 
+def _routing_inputs(upper_img, lower_img, upper_mask, lower_mask, M_upper, M_lower, valid_upper, valid_lower,
+                    M_inv, valid_denorm, erode_upper: bool, patch_hw) -> dict:
+    """Operands of one `norm_warp` + one `composite` launch: the upper source
+    normalizes with M_upper (parts 0-9), the lower source with M_lower's
+    parts 6-9 (appended as 10-13), and all 14 patches re-project with M_inv
+    into two composited groups (upper, lower) and the 4 hand masks."""
+    H, W = upper_img.shape[1:3]
+    L = LOWER_PART_START
+    n_parts = NUM_PARTS + (NUM_PARTS - L)
+    return dict(
+        # norm: image + mask as one 4-channel frame per source, replicate border
+        src_u=torch.cat([upper_img, upper_mask[..., :1]], dim=-1).float().contiguous(),
+        src_l=torch.cat([lower_img, lower_mask[..., :1]], dim=-1).float().contiguous(),
+        minv_norm=inv3x3(torch.cat([M_upper, M_lower[:, L:]], dim=1)).contiguous(),
+        valid_norm=torch.cat([valid_upper, valid_lower[:, L:]], dim=1).float().contiguous(),
+        n_upper=NUM_PARTS,
+        patch_hw=patch_hw,
+        # denorm + saturate + (erode) + composite into the target frame
+        minv_denorm=inv3x3(torch.cat([M_inv, M_inv[:, L:]], dim=1)).contiguous(),
+        valid_denorm=torch.cat([valid_denorm, valid_denorm[:, L:]], dim=1).float().contiguous(),
+        frame_hw=(H, W),
+        groups=(0,) * NUM_PARTS + (1,) * (NUM_PARTS - L),
+        erode_parts=tuple(erode_upper and p < L for p in range(n_parts)),
+        hand_parts=HAND_PARTS,
+        M_invs=M_inv,
+        valid=valid_upper,
+    )
+
+
 def transfer_warp_inputs(
     garment_upper_img: torch.Tensor,  # [B, H, W, 3] garment person's upper clothes, [0, 1]
     person_lower_img: torch.Tensor,  # [B, H, W, 3] target person's own lower clothes
@@ -93,38 +127,28 @@ def transfer_warp_inputs(
     reference test path's `cv2.erode`)."""
     H, W = garment_upper_img.shape[1:3]
     h, w = H >> box_factor, W >> box_factor
-    L = LOWER_PART_START
     Mg, _, valid_g = part_transforms(
         garment_keypoints, img_h=img_h or H, patch_w=w, patch_h=h, pad_x=pad_x, knee_fallbacks=True
     )
     Mp, Mp_inv, valid_p = part_transforms(
         person_keypoints, img_h=img_h or H, patch_w=w, patch_h=h, pad_x=pad_x, knee_fallbacks=True
     )
-    n_parts = NUM_PARTS + (NUM_PARTS - L)
-    return dict(
-        # norm: image + mask as one 4-channel frame per source, replicate border
-        src_u=torch.cat([garment_upper_img, garment_upper_mask[..., :1]], dim=-1).float().contiguous(),
-        src_l=torch.cat([person_lower_img, person_lower_mask[..., :1]], dim=-1).float().contiguous(),
-        minv_norm=inv3x3(torch.cat([Mg, Mp[:, L:]], dim=1)).contiguous(),
-        valid_norm=torch.cat([valid_g, valid_p[:, L:]], dim=1).float().contiguous(),
-        n_upper=NUM_PARTS,
-        patch_hw=(h, w),
-        # denorm + saturate + erode + composite into the person's frame
-        minv_denorm=inv3x3(torch.cat([Mp_inv, Mp_inv[:, L:]], dim=1)).contiguous(),
-        valid_denorm=torch.cat([valid_p, valid_p[:, L:]], dim=1).float().contiguous(),
-        frame_hw=(H, W),
-        groups=(0,) * NUM_PARTS + (1,) * (NUM_PARTS - L),
-        erode_parts=tuple(p < L for p in range(n_parts)),
-        hand_parts=HAND_PARTS,
-        M_invs=Mp_inv,
-        valid=valid_g,
-    )
+    return _routing_inputs(garment_upper_img, person_lower_img, garment_upper_mask, person_lower_mask,
+                           Mg, Mp, valid_g, valid_p, Mp_inv, valid_p, True, (h, w))
 
 
-def route_patches_transfer_batch(*args, **kwargs) -> RoutedPatches:
-    """Unpaired try-on routing (arguments of `transfer_warp_inputs`): one
-    `norm_warp` and one `composite` call for the whole batch."""
-    r = transfer_warp_inputs(*args, **kwargs)
+def self_warp_inputs(upper_img, lower_img, upper_mask, lower_mask, keypoints, box_factor: int = 2,
+                     img_h: Optional[int] = None, pad_x: float = 32.0) -> dict:
+    """Operands of the training path's self-routing: one keypoint set
+    normalizes both sources and denormalizes them back, nothing is eroded."""
+    H, W = upper_img.shape[1:3]
+    h, w = H >> box_factor, W >> box_factor
+    M, M_inv, valid = part_transforms(keypoints, img_h=img_h or H, patch_w=w, patch_h=h, pad_x=pad_x)
+    return _routing_inputs(upper_img, lower_img, upper_mask, lower_mask, M, M, valid, valid, M_inv, valid,
+                           False, (h, w))
+
+
+def _route(r: dict) -> RoutedPatches:
     patches = norm_warp(r["src_u"], r["src_l"], r["minv_norm"], r["valid_norm"], r["n_upper"], r["patch_hw"])
     g_imgs, hands = composite(
         patches, r["minv_denorm"], r["valid_denorm"], r["frame_hw"], r["groups"], r["erode_parts"],
@@ -142,3 +166,15 @@ def route_patches_transfer_batch(*args, **kwargs) -> RoutedPatches:
         norm_clothes_masks_lower=_stack_ch(patches[:, n:, 3:4].expand(-1, -1, 3, -1, -1)),
         valid=r["valid"],
     )
+
+
+def route_patches_batch(*args, **kwargs) -> RoutedPatches:
+    """Training-path self-routing (arguments of `self_warp_inputs`): one
+    `norm_warp` and one `composite` call for the whole batch."""
+    return _route(self_warp_inputs(*args, **kwargs))
+
+
+def route_patches_transfer_batch(*args, **kwargs) -> RoutedPatches:
+    """Unpaired try-on routing (arguments of `transfer_warp_inputs`): one
+    `norm_warp` and one `composite` call for the whole batch."""
+    return _route(transfer_warp_inputs(*args, **kwargs))

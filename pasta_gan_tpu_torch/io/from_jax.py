@@ -1,4 +1,4 @@
-"""JAX GeneratorFull variables -> this package's GeneratorFull state_dict.
+"""JAX variables -> this package's state_dicts: GeneratorFull, Discriminator, VGG19.
 
 The reverse of `pasta_gan_tpu/io/torch_import.py:_ref_key`, kept here so the
 port never imports the JAX package.  `variables` is the JAX package's nested
@@ -10,6 +10,8 @@ Layout translations:
   flax Conv     kernel HWIO     -> OIHW
   eq-lr FC      [out, in]       -> [out, in] (copy)
   const         [H, W, C]       -> [C, H, W]
+  D b4.fc       [out, H*W*C]    -> [out, C*H*W] (JAX flattens NHWC, the port NCHW)
+  VGG19 conv{i} -> torchvision's features.{layer}
 """
 
 from __future__ import annotations
@@ -92,6 +94,10 @@ def state_dict_from_jax(variables, expected: Optional[Mapping[str, torch.Tensor]
         if key in out:
             raise KeyError(f"two JAX leaves map to {key}")
         out[key] = torch.from_numpy(np.array(a, order="C", copy=True))
+    return _checked(out, expected)
+
+
+def _checked(out, expected):
     if expected is not None:
         missing = sorted(set(expected) - set(out))
         extra = sorted(set(out) - set(expected))
@@ -101,3 +107,30 @@ def state_dict_from_jax(variables, expected: Optional[Mapping[str, torch.Tensor]
             if tuple(v.shape) != tuple(expected[k].shape):
                 raise ValueError(f"shape mismatch for {k}: {tuple(v.shape)} vs {tuple(expected[k].shape)}")
     return out
+
+
+def discriminator_state_dict_from_jax(variables, expected: Optional[Mapping[str, torch.Tensor]] = None):
+    """JAX Discriminator `variables` -> the port's Discriminator state_dict
+    (same checks as `state_dict_from_jax`)."""
+    out = state_dict_from_jax(variables)
+    w = out.get("b4.fc.weight")
+    if w is not None:
+        res = 4
+        n_out, n_in = w.shape
+        out["b4.fc.weight"] = (w.reshape(n_out, res, res, n_in // (res * res)).permute(0, 3, 1, 2)
+                               .reshape(n_out, n_in).contiguous())
+    return _checked(out, expected)
+
+
+def vgg19_state_dict_from_jax(variables, expected: Optional[Mapping[str, torch.Tensor]] = None):
+    """JAX `VGG19Features` variables (conv{i}.kernel/bias) -> the port's
+    VGG19Features state_dict (torchvision names, features.{layer}.weight)."""
+    from ..train.vgg import VGG19_CONV_LAYERS
+
+    out = {}
+    for key, v in state_dict_from_jax(variables).items():
+        m = re.fullmatch(r"conv(\d+)\.(weight|bias)", key)
+        if m is None or int(m.group(1)) >= len(VGG19_CONV_LAYERS):
+            raise KeyError(f"unexpected VGG19 leaf {key}")
+        out[f"features.{VGG19_CONV_LAYERS[int(m.group(1))]}.{m.group(2)}"] = v
+    return _checked(out, expected)

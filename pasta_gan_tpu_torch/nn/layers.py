@@ -137,6 +137,29 @@ class ResBlock(nn.Module):
         return y + x
 
 
+class MinibatchStdLayer(nn.Module):
+    """Minibatch standard deviation, NCHW (reference `networks.py:1000-1022`).
+
+    Groups are strided over the batch: sample i's statistics come from
+    {i mod N/G + g N/G}; the statistic is appended as the last channels."""
+
+    def __init__(self, group_size: Optional[int] = 4, num_channels: int = 1):
+        super().__init__()
+        self.group_size, self.num_channels = group_size, num_channels
+
+    def forward(self, x):
+        N, C, H, W = x.shape
+        G = min(self.group_size, N) if self.group_size is not None else N
+        F_ = self.num_channels
+        y = x.reshape(G, N // G, F_, C // F_, H, W).float()
+        y = y - y.mean(dim=0)
+        y = y.square().mean(dim=0)
+        y = (y + 1e-8).sqrt()
+        y = y.mean(dim=(2, 3, 4)).to(x.dtype)  # [N/G, F]
+        y = y.reshape(N // G, F_, 1, 1).repeat(G, 1, H, W)
+        return torch.cat([x, y], dim=1)
+
+
 class DenseNorm(Layer):
     """Linear over channels + InstanceNorm + LeakyReLU(0.01) (the reference's
     `Dense`; plain torch-style Linear parameters, not equalized-LR)."""

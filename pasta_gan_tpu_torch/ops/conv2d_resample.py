@@ -3,7 +3,10 @@
 Counterpart of `pasta_gan_tpu/ops/conv2d_resample.py`, with the same
 decomposition: padding is computed once against the resampled grid, an
 upsampling conv runs upfirdn2d(up, gain=up**2) then the dense conv, a
-downsampling conv runs the FIR first and then a strided dense conv.
+downsampling conv runs the FIR first and then a strided dense conv (a 1x1
+one filters and subsamples first, then runs the conv at stride 1: the same
+numbers, and the FIR is then `downsample2d`'s, which the `down2` kernel
+computes).
 `flip_weight=True` means correlation (what `conv2d` computes); False flips
 the kernel spatially, i.e. a true convolution.
 """
@@ -63,6 +66,9 @@ def conv2d_resample(
         if down > 1:
             x = _u.upfirdn2d(x, f, down=down, flip_filter=flip_filter)
         return x
+    if down > 1 and w.shape[2] == w.shape[3] == 1:
+        x = _u.upfirdn2d(x, f, down=down, padding=(px0, px1, py0, py1), flip_filter=flip_filter)
+        return _conv2d(x, w, groups=groups, flip_weight=flip_weight)
     if down > 1:
         x = _u.upfirdn2d(x, f, padding=(px0, px1, py0, py1), flip_filter=flip_filter)
         return _conv2d(x, w, stride=down, groups=groups, flip_weight=flip_weight)

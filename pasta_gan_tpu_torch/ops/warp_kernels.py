@@ -13,141 +13,21 @@ the JAX package's CPU paths (`_warp_parts_gather`, and the separate-pass
 composite of `route_patches_single`); the CPU tests hold them against JAX and
 `chip_smoke.py` holds the kernels against them on the card.
 
-Kernels are built with nvcc into `pasta_gan_tpu_torch/build/` at first use
-(one shared library per source, plain C interface, loaded with ctypes) and
-count their launches in `KERNELS[name].launches`.
+The kernels are declared, built and counted in `ops/cuda_kernels.py`
+(`KERNELS["norm_warp"]`, `KERNELS["composite"]`).
 """
 
 from __future__ import annotations
-
-import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .cuda_kernels import COMPOSITE, NORM_WARP, check_tensor, stream_of
 from .warp_math import warp_coords
 
 # cv2's `== 255` on uint8 masks, as a float32 threshold.
 MASK_SATURATION_THRESHOLD = float(np.float32(254.5 / 255.0))
-
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
-BUILD_DIR = os.path.join(_PKG_DIR, "build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
-
-_P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
-
-
-class CudaKernel:
-    """One kernel: its source, its C entry point, its build and its launch count."""
-
-    def __init__(self, name: str, source: str, symbol: str, argtypes):
-        self.name = name
-        self.source = source  # file name under csrc/
-        self.symbol = symbol
-        self.argtypes = argtypes
-        self.launches = 0
-        self._fn = None
-
-    @property
-    def source_path(self) -> str:
-        return os.path.join(CSRC_DIR, self.source)
-
-    def library_path(self) -> str:
-        with open(self.source_path, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        return os.path.join(BUILD_DIR, f"{os.path.splitext(self.source)[0]}-{digest}.so")
-
-    def _function(self):
-        if self._fn is None:
-            path = self.library_path()
-            if not os.path.exists(path):
-                build_kernels([self])
-            fn = getattr(ctypes.CDLL(path), self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
-
-    def launch(self, *args) -> None:
-        rc = self._function()(*args)
-        if rc != 0:
-            raise RuntimeError(f"{self.name} kernel launch failed with CUDA error {rc}")
-        self.launches += 1
-
-
-NORM_WARP = CudaKernel(
-    "norm_warp", "norm_warp.cu", "pasta_norm_warp_f32",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-)
-COMPOSITE = CudaKernel(
-    "composite", "composite.cu", "pasta_composite_f32",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U, _U, _I, _F, _P],
-)
-KERNELS: Dict[str, CudaKernel] = {k.name: k for k in (NORM_WARP, COMPOSITE)}
-
-
-def reset_launch_counts() -> None:
-    for k in KERNELS.values():
-        k.launches = 0
-
-
-def _nvcc() -> str:
-    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels cannot be built")
-    return found
-
-
-def build_kernels(kernels: Optional[Sequence[CudaKernel]] = None) -> Dict[str, str]:
-    """Compile every kernel whose library is missing, one nvcc per source, all
-    started together.  Returns {name: ptxas report} for the ones built."""
-    kernels = list(KERNELS.values()) if kernels is None else list(kernels)
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    nvcc = _nvcc()
-    procs = []
-    for k in kernels:
-        out = k.library_path()
-        if os.path.exists(out):
-            continue
-        tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, k.source_path]
-        procs.append((k, out, tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    reports = {}
-    for k, out, tmp, proc in procs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {k.source} (exit {proc.returncode}):\n{log}")
-        os.replace(tmp, out)
-        reports[k.name] = log
-    return reports
-
-
-def _check(t: torch.Tensor, name: str, shape, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _stream(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
 
 
 # --------------------------------------------------------------------- norm
@@ -202,14 +82,14 @@ def norm_warp(src0, src1, minv, valid, n0: int, out_hw) -> torch.Tensor:
     dev = src0.device
     if C != 4:
         raise ValueError(f"norm_warp needs 4-channel frames, got {C}")
-    _check(src0, "src0", (B, H, W, 4), dev)
-    _check(src1, "src1", (B, H, W, 4), dev)
-    _check(minv, "minv", (B, N, 3, 3), dev)
-    _check(valid, "valid", (B, N), dev)
+    check_tensor(src0, "src0", (B, H, W, 4), dev)
+    check_tensor(src1, "src1", (B, H, W, 4), dev)
+    check_tensor(minv, "minv", (B, N, 3, 3), dev)
+    check_tensor(valid, "valid", (B, N), dev)
     out = torch.empty((B, N, 4, h, w), dtype=torch.float32, device=dev)
     NORM_WARP.launch(
         src0.data_ptr(), src1.data_ptr(), minv.data_ptr(), valid.data_ptr(), out.data_ptr(),
-        B, N, n0, H, W, h, w, _stream(dev),
+        B, N, n0, H, W, h, w, stream_of(dev),
     )
     return out
 
@@ -300,9 +180,9 @@ def composite(srcs, minv, valid, out_hw, groups, erode_parts, hand_parts):
         raise ValueError("composite takes 4-channel patches, <= 32 parts and <= 2 groups")
     if list(hand_parts) != sorted(set(hand_parts)):
         raise ValueError(f"hand_parts must be ascending and unique, got {hand_parts}")
-    _check(srcs, "srcs", (B, N, 4, Hs, Ws), dev)
-    _check(minv, "minv", (B, N, 3, 3), dev)
-    _check(valid, "valid", (B, N), dev)
+    check_tensor(srcs, "srcs", (B, N, 4, Hs, Ws), dev)
+    check_tensor(minv, "minv", (B, N, 3, 3), dev)
+    check_tensor(valid, "valid", (B, N), dev)
     group_bits = sum(1 << p for p in range(N) if groups[p] == 1)
     erode_bits = sum(1 << p for p in range(N) if erode_parts[p])
     hand_bits = sum(1 << p for p in hand_parts)
@@ -312,6 +192,6 @@ def composite(srcs, minv, valid, out_hw, groups, erode_parts, hand_parts):
         srcs.data_ptr(), minv.data_ptr(), valid.data_ptr(), g_out.data_ptr(),
         h_out.data_ptr() if hand_parts else None,
         B, N, Hs, Ws, H, W, n_groups, group_bits, erode_bits, hand_bits, len(hand_parts),
-        MASK_SATURATION_THRESHOLD, _stream(dev),
+        MASK_SATURATION_THRESHOLD, stream_of(dev),
     )
     return g_out, h_out

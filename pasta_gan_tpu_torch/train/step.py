@@ -1,0 +1,251 @@
+"""GAN training steps (counterpart of `pasta_gan_tpu/train/step.py`).
+
+Phases of the reference's fashion config, as in the JAX package:
+
+* `train_step`  Gmain, then Dmain on the *updated* G, then G_ema, w_avg and
+                the ADA sign counters;
+* `d_r1_step`   Dreg: R1 with the lazy-regularization gain d_reg_interval.
+
+Greg (path length, weight 0 in the config of record), the contextual loss
+(weight 0) and ADA are later slices: the trainer refuses a config that asks
+for them.  With ADA off the per-loss D calls run one after another, which is
+the grouping the JAX package's stacked calls reproduce.
+
+Gradients come from `torch.autograd.grad` over one network's parameters, so
+the other network accumulates nothing; microbatches (`accum_steps`) add
+their gradients and divide by their count.  NaN/Inf gradients are scrubbed
+before each Adam update.  Batches are the NHWC dicts of
+`data/dataset.py:prepare_train_batch`.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from ..models.generator_full import GeneratorFull, cat_feats_dict, nchw
+from ..nn.discriminator import Discriminator
+from ..runtime.config import TrainConfig, lazy_reg_scaling
+from . import losses
+from .state import TrainState
+from .vgg import VGG19Features, vgg_perceptual_loss
+
+Batch = Dict[str, torch.Tensor]
+
+
+def _scrub(grads: List[torch.Tensor], posinf: float) -> List[torch.Tensor]:
+    """NaN/Inf gradient scrubbing (reference `training_loop...py:513-515`)."""
+    return [torch.nan_to_num(g, nan=0.0, posinf=posinf, neginf=-posinf) for g in grads]
+
+
+def unsupported_features(config: TrainConfig) -> List[str]:
+    """What `config` asks for that this training path does not run yet."""
+    out = []
+    if config.ada.enabled:
+        out.append("ADA augmentation (--aug ada/fixed; train/augment.py, the next training slice)")
+    if config.loss.pl_weight > 0:
+        out.append("path-length regularization (pl_weight > 0; g_pl_step, a later slice)")
+    if config.loss.contextual_weight > 0:
+        out.append("the contextual loss (contextual_weight > 0; a later slice)")
+    if config.model.z_dim > 0:
+        out.append("z_dim > 0 (style mixing)")
+    if config.model.freeze_layers:
+        out.append("freeze_layers > 0")
+    return out
+
+
+class GANTrainer:
+    """Builds the networks and optimizers of a config and runs its phases."""
+
+    def __init__(self, config: TrainConfig, vgg: Optional[VGG19Features] = None, device="cuda",
+                 noise_seed: int = 0):
+        bad = unsupported_features(config)
+        if bad:
+            raise ValueError("this training path does not run: " + "; ".join(bad))
+        self.config = config
+        self.device = torch.device(device)
+        self.dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32
+        self.vgg = vgg
+        self.g_opt_cfg = lazy_reg_scaling(config.g_opt, config.g_reg_interval)
+        self.d_opt_cfg = lazy_reg_scaling(config.d_opt, config.d_reg_interval)
+        self.noise = torch.Generator(device=self.device).manual_seed(noise_seed)
+
+    # ------------------------------------------------------------- init
+
+    def build_networks(self) -> Tuple[GeneratorFull, Discriminator]:
+        m = self.config.model
+        G = GeneratorFull(z_dim=m.z_dim, c_dim=m.c_dim, w_dim=m.w_dim, img_resolution=m.img_resolution,
+                          img_channels=m.img_channels, mapping_layers=m.mapping_layers,
+                          channel_base=m.channel_base, channel_max=m.channel_max, conv_clamp=m.conv_clamp,
+                          use_noise=m.use_noise, style_input_nc=m.style_input_nc, dtype=self.dtype)
+        D = Discriminator(c_dim=m.c_dim, img_resolution=m.img_resolution, img_channels=m.img_channels,
+                          channel_base=m.channel_base, channel_max=m.channel_max, conv_clamp=m.conv_clamp,
+                          mbstd_group_size=m.mbstd_group_size, mbstd_num_channels=m.mbstd_num_channels,
+                          dtype=self.dtype)
+        return G, D
+
+    def _adam(self, module, opt_cfg) -> torch.optim.Adam:
+        return torch.optim.Adam(module.parameters(), lr=opt_cfg.lr, betas=(opt_cfg.beta1, opt_cfg.beta2),
+                                eps=opt_cfg.eps)
+
+    def init_state(self, generator: Optional[torch.Generator] = None, G=None, D=None) -> TrainState:
+        """A fresh state: G and D drawn from `generator` (or the given modules,
+        e.g. weights carried from JAX), G_ema a copy of G."""
+        if G is None or D is None:
+            G, D = self.build_networks()
+            G.reset_parameters(generator)
+            D.reset_parameters(generator)
+        G = G.to(self.device).set_dtype(self.dtype).train()
+        D = D.to(self.device).set_dtype(self.dtype).train()
+        G_ema = copy.deepcopy(G).requires_grad_(False).eval()
+        f32 = dict(dtype=torch.float32, device=self.device)
+        return TrainState(
+            step=0, G=G, D=D, G_ema=G_ema,
+            g_opt=self._adam(G, self.g_opt_cfg), d_opt=self._adam(D, self.d_opt_cfg),
+            w_avg=torch.zeros(self.config.model.w_dim, **f32), pl_mean=torch.zeros((), **f32),
+            ada_p=torch.tensor(self.config.ada.initial_p, **f32), ada_signs_sum=torch.zeros((), **f32),
+            ada_signs_count=torch.zeros((), **f32),
+        )
+
+    # ------------------------------------------------------------- forward helpers
+
+    def run_G(self, G: GeneratorFull, batch: Batch):
+        """Style/pose encode, map, synthesize (reference run_G).  Returns
+        (img, finetune_img, pred_parsing) NHWC, ws, w_raw and the style code."""
+        stylecode, feats = G.encode_style(batch["style_input"], batch["retain"])
+        pose_feat = G.encode_pose(batch["pose"])
+        ws, w_raw = G.map_ws(None, stylecode)
+        img, ft_img, parsing = G.synthesize(
+            ws, pose_feat, cat_feats_dict(feats), batch["denorm_upper_img"], batch["denorm_lower_img"],
+            batch["denorm_upper_mask"], batch["denorm_lower_mask"], noise_mode="random", generator=self.noise)
+        return img, ft_img, parsing, ws, w_raw, stylecode
+
+    @staticmethod
+    def run_D(D: Discriminator, img: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+        """D on an NHWC image batch (no augmentation in this slice)."""
+        return D(nchw(img), c)
+
+    # ------------------------------------------------------------- losses
+
+    def g_loss_fn(self, G, D, batch: Batch):
+        cfg = self.config.loss
+        img, ft_img, parsing, _, w_raw, gen_c = self.run_G(G, batch)
+        real = batch["real_img"]
+        gen_logits = self.run_D(D, img, gen_c)
+        ft_logits = self.run_D(D, ft_img, gen_c)
+        loss_gan = losses.g_nonsaturating(gen_logits)
+        loss_gan_ft = losses.g_nonsaturating(ft_logits)
+        loss_l1 = losses.l1_loss(img, real) * cfg.l1_weight
+        loss_l1_ft = losses.l1_loss(ft_img, real) * cfg.l1_weight
+        zero = real.new_zeros(())
+        loss_mask = zero
+        if cfg.mask_weight > 0:
+            loss_mask = losses.parsing_cross_entropy(parsing, batch["gt_parsing"]) * cfg.mask_weight
+        loss_vgg = loss_vgg_ft = zero
+        if cfg.vgg_weight > 0 and self.vgg is not None:
+            with torch.no_grad():
+                real_feats = self.vgg(real)
+            loss_vgg = vgg_perceptual_loss(self.vgg, img, y_feats=real_feats) * cfg.vgg_weight
+            loss_vgg_ft = vgg_perceptual_loss(self.vgg, ft_img, y_feats=real_feats) * cfg.vgg_weight
+        total = ((loss_gan + loss_gan_ft) / 2 + (loss_l1 + loss_l1_ft) / 2 + (loss_vgg + loss_vgg_ft) / 2
+                 + loss_mask)
+        stats = {
+            "Loss/G/loss": loss_gan, "Loss/G/loss_finetune": loss_gan_ft,
+            "Loss/G/L1": loss_l1, "Loss/G/L1_finetune": loss_l1_ft,
+            "Loss/G/vgg": loss_vgg, "Loss/G/vgg_finetune": loss_vgg_ft,
+            "Loss/G/mask_loss": loss_mask, "Loss/G/contextual": zero,
+            "Loss/scores/fake": gen_logits.mean(), "Loss/signs/fake": gen_logits.sign().mean(),
+            "w_mean": w_raw.float().mean(dim=0),
+        }
+        return total, stats
+
+    def d_loss_fn(self, D, G, batch: Batch):
+        with torch.no_grad():
+            img, ft_img, _, _, _, gen_c = self.run_G(G, batch)
+        gen_logits = self.run_D(D, img, gen_c)
+        ft_logits = self.run_D(D, ft_img, gen_c)
+        real_logits = self.run_D(D, batch["real_img"], gen_c)
+        loss_dgen = (losses.d_fake(gen_logits) + losses.d_fake(ft_logits)) / 2
+        loss_dreal = losses.d_real(real_logits)
+        total = loss_dgen + loss_dreal
+        stats = {"Loss/D/loss": total, "Loss/scores/real": real_logits.mean(),
+                 "Loss/signs/real": real_logits.sign().mean()}
+        return total, stats
+
+    # ------------------------------------------------------------- steps
+
+    def _grads_with_accum(self, loss_fn: Callable[[Batch], Tuple[torch.Tensor, Dict]], params, batch: Batch):
+        """Gradients of loss_fn over `params`, averaged over `accum_steps`
+        microbatches (reference grad-accumulation rounds), and the stats,
+        averaged the same way (detached)."""
+        A = max(1, self.config.accum_steps)
+        n = next(iter(batch.values())).shape[0]
+        if n % A:
+            raise ValueError(f"accum_steps {A} must divide the batch {n}")
+        grads = [torch.zeros_like(p) for p in params]
+        stats: Dict[str, torch.Tensor] = {}
+        for i in range(A):
+            mb = {k: v[i * n // A : (i + 1) * n // A] for k, v in batch.items()}
+            loss, aux = loss_fn(mb)
+            gs = torch.autograd.grad(loss, params, allow_unused=True)
+            for acc, g in zip(grads, gs):
+                if g is not None:
+                    acc.add_(g)
+            for k, v in aux.items():
+                v = v.detach().float()
+                stats[k] = stats[k] + v if k in stats else v
+        return [g / A for g in grads], {k: v / A for k, v in stats.items()}
+
+    def _apply(self, opt: torch.optim.Optimizer, params, grads) -> None:
+        for p, g in zip(params, _scrub(grads, self.config.grad_clip_posinf)):
+            p.grad = g
+        opt.step()
+        opt.zero_grad(set_to_none=True)
+
+    def train_step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """Gmain, Dmain on the updated G, G_ema, w_avg and the ADA counters; in place."""
+        cfg = self.config
+        g_params = list(state.G.parameters())
+        g_grads, g_stats = self._grads_with_accum(lambda b: self.g_loss_fn(state.G, state.D, b), g_params, batch)
+        self._apply(state.g_opt, g_params, g_grads)
+
+        d_params = list(state.D.parameters())
+        d_grads, d_stats = self._grads_with_accum(lambda b: self.d_loss_fn(state.D, state.G, b), d_params, batch)
+        self._apply(state.d_opt, d_params, d_grads)
+
+        with torch.no_grad():
+            # G_ema (training_loop...py:521-529): p + beta (ema - p)
+            cur_nimg = (state.step + 1) * cfg.batch_size
+            ema_nimg = cfg.ema_kimg * 1000.0
+            if cfg.ema_rampup is not None:
+                ema_nimg = min(ema_nimg, cur_nimg * cfg.ema_rampup)
+            beta = 0.5 ** (cfg.batch_size / max(ema_nimg, 1e-8))
+            for p, e in zip(state.G.parameters(), state.G_ema.parameters()):
+                e.copy_(p + beta * (e - p))
+            w_mean = g_stats.pop("w_mean")
+            state.w_avg.copy_(w_mean + cfg.w_avg_beta * (state.w_avg - w_mean))
+            state.ada_signs_sum.add_(d_stats["Loss/signs/real"])
+            state.ada_signs_count.add_(1.0)
+        state.step += 1
+        stats = {**g_stats, **d_stats, "Progress/augment_p": state.ada_p.clone()}
+        return state, stats
+
+    def d_r1_step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """Dreg: R1 on the real images with the lazy-regularization gain; in place."""
+        cfg = self.config
+        gain = float(cfg.d_reg_interval or 1)
+        scale = cfg.loss.r1_gamma / 2.0 * gain
+
+        def r1_loss(b):
+            with torch.no_grad():  # conditioning from the style encoder; Dreg does not touch G
+                gen_c, _ = state.G.encode_style(b["style_input"], b["retain"])
+            penalty = losses.r1_penalty(lambda x: self.run_D(state.D, x, gen_c), b["real_img"])
+            return penalty * scale, {"Loss/r1_penalty": penalty}
+
+        d_params = list(state.D.parameters())
+        d_grads, stats = self._grads_with_accum(r1_loss, d_params, batch)
+        self._apply(state.d_opt, d_params, d_grads)
+        stats["Loss/D/reg"] = stats["Loss/r1_penalty"] * scale
+        return state, stats

@@ -1,4 +1,6 @@
-"""The port's two CUDA routing kernels against their plain PyTorch versions.
+"""The port's CUDA kernels against their plain PyTorch versions: the two
+routing kernels (norm_warp, composite) and the two FIR resampling kernels
+(up2, down2).
 
 This file imports no JAX, so it also runs on a machine with an NVIDIA GPU
 and no JAX:
@@ -9,15 +11,23 @@ and no JAX:
 `cuda` tests skip; the numpy input makers here are shared with
 tests/test_torch_routing.py, which holds the plain versions against JAX.
 
-Tolerance atol 5e-5.  The composite inputs are seeds whose mask values keep
+Routing tolerance atol 5e-5.  The composite inputs are seeds whose mask values keep
 farther than 1e-5 from 254.5/255 (tests/test_torch_routing.py asserts it),
 so every pixel is compared.
+
+FIR tolerances: fp32 atol 1e-6 (the kernels repeat the plain version's
+rounded products and sums in its order, so they agree to the bit on the
+card); bf16 within 2 ulp (relative 2^-7) of the plain version.
 """
+
+import os
 
 import numpy as np
 import pytest
 import torch
 
+from pasta_gan_tpu_torch.ops import cuda_kernels as ck
+from pasta_gan_tpu_torch.ops import upfirdn_kernels as uk
 from pasta_gan_tpu_torch.ops import warp_kernels as wk
 from pasta_gan_tpu_torch.ops.warp_math import inv3x3
 
@@ -93,10 +103,10 @@ def _composite_args(seed, device, hw=None):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_norm_warp_kernel_matches_plain(cuda_device, seed):
     args = _norm_args(seed, cuda_device)
-    before = wk.NORM_WARP.launches
+    before = ck.NORM_WARP.launches
     out = wk.norm_warp(*args)
     torch.cuda.synchronize()
-    assert wk.NORM_WARP.launches == before + 1
+    assert ck.NORM_WARP.launches == before + 1
     np.testing.assert_allclose(out.cpu().numpy(), wk.norm_warp_reference(*args).cpu().numpy(), atol=TOL)
 
 
@@ -106,10 +116,10 @@ def test_norm_warp_kernel_matches_plain(cuda_device, seed):
 @pytest.mark.parametrize("seed,hw", [(0, None), (3, None), (0, (72, 40))])
 def test_composite_kernel_matches_plain(cuda_device, seed, hw):
     args = _composite_args(seed, cuda_device, hw)
-    before = wk.COMPOSITE.launches
+    before = ck.COMPOSITE.launches
     g, h = wk.composite(*args)
     torch.cuda.synchronize()
-    assert wk.COMPOSITE.launches == before + 1
+    assert ck.COMPOSITE.launches == before + 1
     g_p, h_p = wk.composite_reference(*args)
     np.testing.assert_allclose(g.cpu().numpy(), g_p.cpu().numpy(), atol=TOL)
     np.testing.assert_allclose(h.cpu().numpy(), h_p.cpu().numpy(), atol=TOL)
@@ -117,7 +127,7 @@ def test_composite_kernel_matches_plain(cuda_device, seed, hw):
 
 @pytest.mark.parametrize("kernel", ["norm_warp", "composite"])
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch(kernel):
-    before = {k.name: k.launches for k in wk.KERNELS.values()}
+    before = {k.name: k.launches for k in ck.KERNELS.values()}
     if kernel == "norm_warp":
         args = _norm_args(0, "cpu")
         torch.testing.assert_close(wk.norm_warp(*args), wk.norm_warp_reference(*args), rtol=0, atol=0)
@@ -125,7 +135,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch(kernel):
         args = _composite_args(0, "cpu")
         for a, b in zip(wk.composite(*args), wk.composite_reference(*args)):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert {k.name: k.launches for k in wk.KERNELS.values()} == before
+    assert {k.name: k.launches for k in ck.KERNELS.values()} == before
 
 
 def test_kernel_wrappers_reject_bad_cuda_inputs_without_a_card():
@@ -153,3 +163,105 @@ def test_kernel_wrappers_check_cuda_inputs(cuda_device):
         wk.composite(srcs, cminv, cvalid, frame_hw, groups, erode, (3, 1))  # hand parts out of order
     with pytest.raises(ValueError):
         wk.composite(srcs.half(), cminv, cvalid, frame_hw, groups, erode, hands)
+
+
+# ------------------------------------------------------------------ up2 / down2
+
+FIR_F32_TOL = 1e-6
+BF16_REL = 2.0 ** -7  # 2 ulp of bf16's 8-bit mantissa
+# every block size of the 256px G and D, and an odd one
+FIR_SIZES = (4, 5, 8, 16, 32, 64, 128, 256)
+
+
+def _fir_input(seed, shape, dtype=torch.float32, device="cpu"):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device=device, dtype=dtype)
+
+
+def _fir_close(a, b, dtype):
+    a, b = a.float().cpu(), b.float().cpu()
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(a, b, rtol=BF16_REL, atol=BF16_REL * float(b.abs().max()) * 2 ** -8)
+    else:
+        torch.testing.assert_close(a, b, rtol=0, atol=FIR_F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", FIR_SIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fir_kernels_match_plain(cuda_device, size, dtype):
+    channels = max(1, 2048 // (size * size))
+    x = _fir_input(size, (2, channels, size, size + 2), dtype, cuda_device)
+    for extend in (0, 1):
+        before = ck.UP2.launches
+        y = uk.up2(x, extend=extend)
+        torch.cuda.synchronize()
+        assert ck.UP2.launches == before + 1
+        assert y.dtype == dtype and y.shape[2:] == (2 * size + 2 * extend, 2 * size + 4 + 2 * extend)
+        _fir_close(y, uk.up2_reference(x, extend), dtype)
+    if size % 2 == 0:
+        for pad in (0, 1):
+            before = ck.DOWN2.launches
+            y = uk.down2(x, pad=pad, gain=4.0)
+            torch.cuda.synchronize()
+            assert ck.DOWN2.launches == before + 1
+            _fir_close(y, uk.down2_reference(x, pad, 4.0), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", (4, 8, 64))
+def test_fir_kernels_adjoint_and_double_backward_on_card(cuda_device, size):
+    """<up2(x), g> = <x, 4 down2(g)> on the card, and the first and second
+    derivatives (R1's) equal the CPU's, which run the plain versions."""
+    x = _fir_input(1, (2, 3, size, size))
+    for extend in (0, 1):
+        g = _fir_input(2, (2, 3, 2 * size + 2 * extend, 2 * size + 2 * extend))
+        xc, gc = x.to(cuda_device), g.to(cuda_device)
+        lhs = float((uk.up2(xc, extend) * gc).double().sum())
+        rhs = float((xc * uk.down2(gc, 1 - extend, 4.0)).double().sum())
+        assert abs(lhs - rhs) <= 1e-5 * abs(lhs) + 1e-4
+
+        def second(dev):
+            xi = x.to(dev).requires_grad_(True)
+            w = _fir_input(3, (2, 3, size, size)).to(dev)
+            y = uk.down2(uk.up2(xi, extend) * g.to(dev), pad=1 - extend)
+            (gx,) = torch.autograd.grad((y * y).sum(), xi, create_graph=True)
+            (ggx,) = torch.autograd.grad((gx * w).sum(), xi)
+            return gx.detach().cpu(), ggx.cpu()
+
+        for a, b in zip(second(cuda_device), second("cpu")):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+
+
+def test_fir_wrappers_on_cpu_take_the_plain_version_and_refuse_other_devices():
+    x = _fir_input(0, (1, 2, 8, 8))
+    before = ck.launch_counts()
+    torch.testing.assert_close(uk.up2(x, 1), uk.up2_reference(x, 1), rtol=0, atol=0)
+    torch.testing.assert_close(uk.down2(x, 1), uk.down2_reference(x, 1), rtol=0, atol=0)
+    assert ck.launch_counts() == before
+    meta = torch.zeros((1, 2, 8, 8), device="meta")
+    with pytest.raises(ValueError):
+        uk.up2(meta)
+    with pytest.raises(ValueError):
+        uk.down2(meta)
+    with pytest.raises(ValueError):
+        uk.down2(torch.zeros((1, 1, 5, 6)))
+    with pytest.raises(ValueError):
+        uk.up2(x, extend=2)
+
+
+@pytest.mark.cuda
+def test_fir_wrappers_check_cuda_inputs(cuda_device):
+    x = _fir_input(0, (1, 2, 8, 8), device=cuda_device)
+    with pytest.raises(ValueError):
+        uk.up2(x.double())
+    with pytest.raises(ValueError):
+        uk.down2(x.half())
+    with pytest.raises(ValueError):
+        uk.down2(x[:, :, :7, :6])
+
+
+def test_registry_holds_every_kernel_once():
+    assert sorted(ck.KERNELS) == ["composite", "down2", "norm_warp", "up2"]
+    for k in ck.KERNELS.values():
+        assert os.path.exists(k.source_path), k.source

@@ -34,6 +34,7 @@ from pasta_gan_tpu.data import warp as jw
 from pasta_gan_tpu.models import GeneratorFull as JaxGeneratorFull
 from pasta_gan_tpu.models import cat_feats_dict as jax_cat_feats_dict
 from pasta_gan_tpu_torch.cli import test as cli
+from pasta_gan_tpu_torch.cli import train as cli_train
 from pasta_gan_tpu_torch.data import dataset as tds
 from pasta_gan_tpu_torch.io.checkpoints import save_snapshot
 from pasta_gan_tpu_torch.io.from_jax import state_dict_from_jax
@@ -208,6 +209,11 @@ def test_port_imports_no_jax_cv2_pil_or_jax_package():
     for root, _, names in os.walk(os.path.join(REPO, "pasta_gan_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
+    rel = {os.path.relpath(f, REPO) for f in files}
+    training = {f"pasta_gan_tpu_torch/{m}.py" for m in (
+        "ops/cuda_kernels", "ops/upfirdn_kernels", "nn/discriminator", "runtime/config", "train/losses",
+        "train/vgg", "train/state", "train/step", "train/loop", "cli/train")}
+    assert training <= rel, sorted(training - rel)
     bad = [(os.path.relpath(f, REPO), mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -226,3 +232,7 @@ def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
     save_snapshot(str(tmp_path / "snap.pt"), gen.state_dict(), torch.zeros(512), {"model": gen.config})
     with pytest.raises(RuntimeError, match="cuda"):
         cli.load_generator(str(tmp_path / "snap.pt"))
+    with pytest.raises(RuntimeError, match="cuda"):
+        tds.prepare_train_batch(person)
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli_train.main(["--outdir", str(tmp_path / "runs"), "--synthetic", "1"])
