@@ -4,34 +4,46 @@
   python3 chip_smoke.py    # needs one NVIDIA GPU; the last line is the JSON verdict
 
 Phases, each fatal on failure:
-1. Build the four kernels from `pasta_gan_tpu_torch/csrc/` with nvcc (one
+1. Build the five kernels from `pasta_gan_tpu_torch/csrc/` with nvcc (one
    process per source, all started together).
-2. Kernel phase.  The routing kernels at the try-on path's batch-16 shapes
-   and the FIR kernels at the training path's largest shapes (up2 pre-FIR
-   [16,128,128,128], down2 [32,64,256,256]), each against its plain PyTorch
-   version on the card (fp32 with TF32 off, and bf16), with times from CUDA
-   events (L2 flushed before each launch), the byte/operation bound and a
-   one-call library yardstick (`grid_sample`, depthwise
-   `conv_transpose2d` / `conv2d`); the FIR kernels also check their adjoint
-   identity.
-3. Serving phase: a full-width GeneratorFull (channel_base 16384, channel_max
-   512, 256px) drawn from a seeded generator is saved as a snapshot and
-   served through `pasta_gan_tpu_torch.cli.test.main` for 16 synthetic pairs;
-   every kernel's launch counter must rise during that run.  Then the card's
-   result is held against the port's CPU path on a small input, the bf16
-   forward against the fp32 one at batch 16, and the end-to-end try-on
-   (routing + bf16 forward) is timed at batch 16 and 1, each step also under
+2. Kernel phase.  The routing kernels at the try-on paths' batch-16 shapes
+   (norm_warp and composite on the Full route; norm_warp at 8 channels and
+   denorm_warp, constant border, on the released-256 route, plus a smaller
+   replicate-border denorm_warp case) and the FIR kernels at the training
+   path's largest shapes (up2 pre-FIR [16,128,128,128], down2
+   [32,64,256,256]), each against its plain PyTorch version on the card
+   (fp32 with TF32 off, and bf16), with times from CUDA events (L2 flushed
+   before each launch), the byte/operation bound and a one-call library
+   yardstick (`grid_sample`, depthwise `conv_transpose2d` / `conv2d`); the
+   FIR kernels also check their adjoint identity.
+3. Full serving phase: a full-width GeneratorFull (channel_base 16384,
+   channel_max 512, 256px) drawn from a seeded generator is saved as a
+   snapshot and served through `pasta_gan_tpu_torch.cli.test.main` for 16
+   synthetic pairs on the fused denorm route.  Then the card's result is
+   held against the port's CPU path on a small input, the bf16 forward
+   against the fp32 one at batch 16, and the end-to-end try-on (routing +
+   bf16 forward) is timed at batch 16 and 1, each step also under
    `torch.profiler` (device ms, busy share, device operations, top ones).
-4. Training phase: `pasta_gan_tpu_torch.cli.train.main` trains the
+4. Released-256 (V18) serving phase: a full-width GeneratorV18 snapshot is
+   served through `cli.test.main --generator v18` for 16 synthetic pairs,
+   once with `--denorm fused` (composite launches, denorm_warp does not) and
+   once with `--denorm separate` (denorm_warp launches, composite does not).
+   The two routes' batches are held against each other on the card, the
+   card's routing and a thin V18 forward against the CPU path, and the
+   end-to-end V18 try-on is timed and profiled on both routes at batch 16
+   and 1.
+5. Training phase: `pasta_gan_tpu_torch.cli.train.main` trains the
    full-width `fashion` G and D (random init from seed 0, He-initialized
    VGG19) for 4 steps at batch 32 in bf16, R1 on the first, on 64 synthetic
-   samples; losses must be finite, G, D and G_ema must move and all four
-   kernels must launch.  It prints the Gmain+Dmain and R1 step times,
-   sec/kimg, peak memory and a `torch.profiler` breakdown of one step.  Then
-   one fp32 training step (Gmain, Dmain, R1) at a thin width is held against
-   the same step on the port's CPU path.
-Every number printed is tagged with the card's name and power limit.  The
-`kernels` line's launch counts are the training run's.
+   samples; losses must be finite, G, D and G_ema must move.  It prints the
+   Gmain+Dmain and R1 step times, sec/kimg, peak memory and a
+   `torch.profiler` breakdown of one step.  Then one fp32 training step
+   (Gmain, Dmain, R1) at a thin width is held against the same step on the
+   port's CPU path.
+Each path's launch counts are set to 0 just before it runs and read just
+after; each path must launch exactly its kernels (`PATH_KERNELS`).  Every
+number printed is tagged with the card's name and power limit.  The
+`kernels` line gives each kernel's launches per path and their sum.
 """
 
 import json
@@ -54,6 +66,7 @@ TRAIN_STEPS, TRAIN_BATCH = 4, 32
 LOSS_RTOL, GRAD_REL_L2, STEP_REL_L2 = 1e-4, 1e-3, 1e-2
 REPLACES = {"norm_warp": "pasta_gan_tpu/ops/pallas_warp.py:172",
             "composite": "pasta_gan_tpu/ops/pallas_warp.py:480",
+            "denorm_warp": "pasta_gan_tpu/ops/pallas_warp.py:78",
             "up2": "pasta_gan_tpu/ops/pallas_upfirdn.py:60",
             "down2": "pasta_gan_tpu/ops/pallas_upfirdn.py:134"}
 # bf16 vs fp32 forward, ||bf16 - fp32|| / ||fp32|| of the finetune image.  bf16
@@ -61,6 +74,10 @@ REPLACES = {"norm_warp": "pasta_gan_tpu/ops/pallas_warp.py:172",
 # snapshot init at channel_base 512 on the CPU a correct bf16 path gives 0.031,
 # and a bf16-only fault that clamps the demodulation coefficients gives 2.07.
 BF16_REL_L2 = 0.1
+# the kernels each driven path launches (and no other)
+FUSED = {"norm_warp", "composite", "up2", "down2"}
+PATH_KERNELS = {"serving_full": FUSED, "serving_v18_fused": FUSED,
+                "serving_v18_separate": {"norm_warp", "denorm_warp", "up2", "down2"}, "training": FUSED}
 
 
 def card_tag():
@@ -128,32 +145,38 @@ def norm_source_bytes(torch, r):
     return sector_bytes(torch, 2 * nbytes(src), torch.cat(offs))
 
 
+def frame_taps(torch, minv, valid, patch_hw, frame_hw):
+    """The bilinear taps (constant-zero border) of every frame pixel of every
+    part, as [(flat patch index, keep)] for the 4 taps; keep marks a tap of
+    nonzero weight inside the patch, at a pixel that a valid part reaches."""
+    from pasta_gan_tpu_torch.ops.warp_math import warp_coords
+
+    Hs, Ws = patch_hw
+    sx, sy = warp_coords(minv, frame_hw)  # [B, N, H, W]
+    live = (valid != 0)[..., None, None] & (sx > -1) & (sx < Ws) & (sy > -1) & (sy < Hs)
+    sx, sy = sx.clamp(-1.0, float(Ws)), sy.clamp(-1.0, float(Hs))
+    x0, y0 = torch.floor(sx), torch.floor(sy)
+    xi, yi = x0.long(), y0.long()
+    taps = []
+    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        yy, xx = yi + dy, xi + dx
+        keep = live & (yy >= 0) & (yy < Hs) & (xx >= 0) & (xx < Ws)
+        if dx:
+            keep &= sx > x0
+        if dy:
+            keep &= sy > y0
+        taps.append((yy * Ws + xx, keep))
+    return taps
+
+
 def composite_patch_bytes(torch, wk, patches, minv, valid, frame_hw, groups, erode_parts):
     """Bytes of the planar patches [B, N, 4, h, w] that the composite must
     read for this run's data: the mask channel's taps of nonzero weight at
     every frame pixel each valid part reaches, and the image channels' taps
     only where the part is the last saturated one of its group (the pixel it
     leaves in the output)."""
-    from pasta_gan_tpu_torch.ops.warp_math import warp_coords
-
     B, N, C, Hs, Ws = patches.shape
-    H, W = frame_hw
-    sx, sy = warp_coords(minv, frame_hw)  # [B, N, H, W]
-    live = (valid != 0)[..., None, None] & (sx > -1) & (sx < Ws) & (sy > -1) & (sy < Hs)
-    sx, sy = sx.clamp(-1.0, float(Ws)), sy.clamp(-1.0, float(Hs))
-    x0, y0 = torch.floor(sx), torch.floor(sy)
-    xi, yi = x0.long(), y0.long()
-    taps = []  # (y, x, in range with nonzero weight)
-    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
-        yy, xx = yi + dy, xi + dx
-        keep = (yy >= 0) & (yy < Hs) & (xx >= 0) & (xx < Ws)
-        if dx:
-            keep &= sx > x0
-        if dy:
-            keep &= sy > y0
-        taps.append((yy, xx, keep))
-
-    sat = wk.denorm_warp_reference(patches, minv, frame_hw)[:, :, 3] >= wk.MASK_SATURATION_THRESHOLD
+    sat = wk.denorm_warp_reference(patches, minv, valid, frame_hw)[:, :, 3] >= wk.MASK_SATURATION_THRESHOLD
     ero = [p for p in range(N) if erode_parts[p]]
     sat = sat.float()
     sat[:, ero] = wk.erode_binary(sat[:, ero])
@@ -166,11 +189,23 @@ def composite_patch_bytes(torch, wk, patches, minv, valid, frame_hw, groups, ero
 
     bp = (torch.arange(B, device=patches.device)[:, None] * N + torch.arange(N, device=patches.device))[..., None, None]
     offs = []
-    for yy, xx, keep in taps:
-        pix = yy * Ws + xx
-        offs.append((((bp * C + 3) * Hs * Ws + pix) * 4)[keep & live])
+    for pix, keep in frame_taps(torch, minv, valid, (Hs, Ws), frame_hw):
+        offs.append((((bp * C + 3) * Hs * Ws + pix) * 4)[keep])
         for c in range(3):
-            offs.append((((bp * C + c) * Hs * Ws + pix) * 4)[keep & live & winner])
+            offs.append((((bp * C + c) * Hs * Ws + pix) * 4)[keep & winner])
+    return sector_bytes(torch, nbytes(patches), torch.cat(offs))
+
+
+def denorm_patch_bytes(torch, patches, minv, valid, frame_hw):
+    """Bytes of the planar patches [B, N, C, h, w] that denorm_warp (constant
+    border) must read for this run's data: every channel's taps of nonzero
+    weight at every frame pixel each valid part reaches."""
+    B, N, C, Hs, Ws = patches.shape
+    bp = (torch.arange(B, device=patches.device)[:, None] * N + torch.arange(N, device=patches.device))[..., None, None]
+    offs = []
+    for pix, keep in frame_taps(torch, minv, valid, (Hs, Ws), frame_hw):
+        for c in range(C):
+            offs.append((((bp * C + c) * Hs * Ws + pix) * 4)[keep])
     return sector_bytes(torch, nbytes(patches), torch.cat(offs))
 
 
@@ -179,7 +214,7 @@ def near_threshold_pixels(torch, wk, srcs, minv, valid, frame_hw, erode_parts):
     flip a saturation decision (plain mask value within NEAR of the threshold,
     dilated by the 5x5 erosion for eroded parts)."""
     F = torch.nn.functional
-    m = wk.denorm_warp_reference(srcs, minv, frame_hw)[:, :, 3] * valid[:, :, None, None]
+    m = wk.denorm_warp_reference(srcs, minv, valid, frame_hw)[:, :, 3]
     near = ((m - wk.MASK_SATURATION_THRESHOLD).abs() <= NEAR).float()
     ero = [p for p, e in enumerate(erode_parts) if e]
     near[:, ero] = F.max_pool2d(near[:, ero], 5, stride=1, padding=2)
@@ -259,7 +294,7 @@ def kernel_phase(torch, wk, tag):
     byts = patch_bytes + nbytes(r["minv_denorm"], r["valid_denorm"], g_k, h_k)
     # per valid (sample, part): coordinates + mask blend (~21 flops) per frame pixel,
     # a 5x5 min (~8 flops) per pixel of eroded parts, and the 3-channel blend where saturated
-    sat_px = int((wk.denorm_warp_reference(out_p, r["minv_denorm"], r["frame_hw"])[:, :, 3]
+    sat_px = int((wk.denorm_warp_reference(out_p, r["minv_denorm"], r["valid_denorm"], r["frame_hw"])[:, :, 3]
                   >= wk.MASK_SATURATION_THRESHOLD).sum())
     ops = n_valid * Hf * Wf * 21 + n_ero * Hf * Wf * 8 + sat_px * 27
     results["composite"] = dict(
@@ -272,6 +307,85 @@ def kernel_phase(torch, wk, tag):
     for name, res in results.items():
         report_kernel(name, res, tag)
     return results
+
+
+def v18_kernel_phase(torch, wk, tag):
+    """The released-256 route's kernels at batch 16 from synthetic pairs:
+    norm_warp at 8 channels, and denorm_warp with the constant border (the
+    separate route's first pass) with its `grid_sample` yardstick; then a
+    smaller replicate-border denorm_warp case.  Returns {"denorm_warp": ...}."""
+    from pasta_gan_tpu_torch.data.dataset import SyntheticUvitonDataset, collate, tryon_warp_inputs_v18
+    from pasta_gan_tpu_torch.ops.warp_math import warp_coords
+
+    F = torch.nn.functional
+    B = 16
+    ds = SyntheticUvitonDataset(num_samples=B)
+    r = tryon_warp_inputs_v18(collate([ds[i] for i in range(B)]), collate([ds[(i + 1) % B] for i in range(B)]),
+                              device="cuda")
+    assert bool(torch.isfinite(r["minv_norm"]).all()) and bool(torch.isfinite(r["minv_denorm"]).all())
+
+    # ---- norm_warp at C = 8 (image, mask, stickman, pad)
+    args = (r["src_u"], r["src_l"], r["minv_norm"], r["valid_norm"], r["n_upper"], r["patch_hw"])
+    out_k = wk.norm_warp(*args)
+    out_p = wk.norm_warp_reference(*args)
+    torch.cuda.synchronize()
+    err = float((out_k - out_p).abs().max())
+    assert err <= TOL, f"norm_warp (C = 8) disagrees with its plain version: {err}"
+    _, N, C, h, w = out_k.shape
+    src_bytes = norm_source_bytes(torch, r)
+    res = dict(err=err, ms=cuda_time_ms(torch, lambda: wk.norm_warp(*args)),
+               plain_ms=cuda_time_ms(torch, lambda: wk.norm_warp_reference(*args), iters=5), library_ms=None,
+               bytes=src_bytes + nbytes(r["minv_norm"], r["valid_norm"], out_k), ops=B * N * h * w * (12 + C * 10),
+               extra=(f"source sectors read {src_bytes / 1e6:.2f} of {nbytes(r['src_u'], r['src_l']) / 1e6:.2f} MB; "
+                      "the released-256 route's 8-channel frames"))
+    report_kernel(f"norm_warp(C=8, {list(out_k.shape)})", res, tag)
+
+    # ---- denorm_warp, constant border, on the route's image + mask patches
+    srcs = out_p[:, :, 0:4].contiguous()
+    minv, valid, frame_hw = r["minv_denorm"], r["valid_denorm"], r["frame_hw"]
+    dargs = (srcs, minv, valid, frame_hw)
+    dn_k = wk.denorm_warp(*dargs)
+    dn_p = wk.denorm_warp_reference(*dargs)
+    torch.cuda.synchronize()
+    err = float((dn_k - dn_p).abs().max())
+    assert err <= TOL, f"denorm_warp disagrees with its plain version: {err}"
+    _, N, C, Hs, Ws = srcs.shape
+    H, W = frame_hw
+    # grid_sample yardstick: one call over the B*N patches, the grid built outside the timed call
+    sx, sy = warp_coords(minv, frame_hw)
+    grid = torch.stack([sx / (Ws - 1) * 2 - 1, sy / (Hs - 1) * 2 - 1], dim=-1).reshape(B * N, H, W, 2).contiguous()
+    flat = srcs.reshape(B * N, C, Hs, Ws)
+
+    def library():
+        return F.grid_sample(flat, grid, mode="bilinear", padding_mode="zeros", align_corners=True)
+
+    lib_err = float((library().reshape(B, N, C, H, W) * valid[:, :, None, None, None] - dn_p).abs().max())
+    patch_bytes = denorm_patch_bytes(torch, srcs, minv, valid, frame_hw)
+    inside = int(sum(k.sum() for _, k in frame_taps(torch, minv, valid, (Hs, Ws), frame_hw)[:1]))
+    # ~12 flops of coordinates per pixel of a valid part, ~10 per channel where it samples
+    ops = int(valid.sum()) * H * W * 12 + inside * C * 10
+    del dn_p
+    res = dict(err=err, ms=cuda_time_ms(torch, lambda: wk.denorm_warp(*dargs)),
+               plain_ms=cuda_time_ms(torch, lambda: wk.denorm_warp_reference(*dargs), iters=5),
+               library_ms=cuda_time_ms(torch, library), bytes=patch_bytes + nbytes(minv, valid, dn_k), ops=ops,
+               extra=(f"patch sectors read {patch_bytes / 1e6:.2f} of {nbytes(srcs) / 1e6:.2f} MB, "
+                      f"{nbytes(dn_k) / 1e6:.1f} MB written; grid_sample max |diff| vs plain {lib_err:.3g}"))
+    report_kernel(f"denorm_warp(constant, {list(srcs.shape)} -> {list(dn_k.shape)})", res, tag)
+    del dn_k, grid
+
+    # ---- denorm_warp, replicate border, two samples
+    rargs = (srcs[:2].contiguous(), minv[:2].contiguous(), valid[:2].contiguous(), frame_hw)
+    rk = wk.denorm_warp(*rargs, "replicate")
+    rp = wk.denorm_warp_reference(*rargs, "replicate")
+    torch.cuda.synchronize()
+    rerr = float((rk - rp).abs().max())
+    assert rerr <= TOL, f"denorm_warp (replicate) disagrees with its plain version: {rerr}"
+    rres = dict(err=rerr, ms=cuda_time_ms(torch, lambda: wk.denorm_warp(*rargs, "replicate")),
+                plain_ms=cuda_time_ms(torch, lambda: wk.denorm_warp_reference(*rargs, "replicate"), iters=5),
+                library_ms=None, bytes=nbytes(rargs[0], rargs[1], rargs[2], rk), ops=rk.numel() * 10 + 12 * H * W * 20,
+                extra="every pixel samples the clamped patch; bound counts the whole patches")
+    report_kernel(f"denorm_warp(replicate, {list(rargs[0].shape)} -> {list(rk.shape)})", rres, tag)
+    return {"denorm_warp": res}
 
 
 def report_kernel(label, res, tag):
@@ -347,7 +461,98 @@ def fir_kernel_phase(torch, tag):
     return results
 
 
+def serve(torch, cli, ck, tag, path, argv):
+    """One `cli.test.main` run of 16 synthetic pairs with the launch counts
+    set to 0 just before it and read just after; the run must write 16 PNGs
+    (the CLI refuses non-finite images) and launch exactly the path's
+    kernels.  Returns the counts."""
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    written = cli.main(argv + ["--synthetic", "16", "--batchsize", "16"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    launches = ck.launch_counts()
+    print(f"cli.test ({path}): {len(written)} images in {cli_s:.2f} s (first call, includes loading); "
+          f"launches {launches} [{tag}]", flush=True)
+    assert len(written) == 16 and all(os.path.getsize(p) > 1000 for p in written), "missing try-on PNGs"
+    for p in written:
+        with open(p, "rb") as f:
+            assert f.read(8) == b"\x89PNG\r\n\x1a\n", p
+    ran = {name for name, n in launches.items() if n > 0}
+    assert ran == PATH_KERNELS[path], f"{path} launched {sorted(ran)}, expected {sorted(PATH_KERNELS[path])}"
+    return launches
+
+
+def batch_diff(torch, wk, a, b, r, patches):
+    """Max |a - b| over the keys of two try-on batches, leaving out the pixels
+    a near-threshold plain mask value could flip (`r` the route's operands,
+    `patches` its plain 4-channel norm patches); and the count left out."""
+    near = near_threshold_pixels(torch, wk, patches, r["minv_denorm"], r["valid_denorm"], r["frame_hw"],
+                                 r["erode_parts"])[..., None]
+    worst = 0.0
+    for k in a:
+        d = (a[k].to(near.device) - b[k].to(near.device)).abs()
+        if d.shape[1:3] == near.shape[1:3]:
+            d = d * ~near
+        worst = max(worst, float(d.max()))
+    return worst, int(near.sum())
+
+
+def host_ms(torch, fn, iters):
+    """Median wall ms of one synchronised run, and the last output."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ts.append(time.perf_counter() - t0)
+    return statistics.median(ts) * 1e3, out
+
+
+def time_tryon(torch, cli, gen, w_avg, prepare, batches, label, tag):
+    """End-to-end try-on (routing + bf16 forward) for each (B, person,
+    garment, iters) of `batches`: median host ms, then each step alone and
+    under torch.profiler.  `prepare(person, garment)` routes one batch."""
+    def route(p, gm):
+        return {k: v.to(torch.bfloat16) for k, v in prepare(p, gm).items()}
+
+    for B, p, gm, iters in batches:
+        e2e_ms, out = host_ms(torch, lambda: cli.tryon_forward(gen, w_avg, route(p, gm)), iters)
+        assert tuple(out.shape) == (B, 256, 256, 3) and bool(torch.isfinite(out.float()).all())
+        batch = route(p, gm)
+        steps = {"routing": lambda: route(p, gm), "forward": lambda: cli.tryon_forward(gen, w_avg, batch)}
+        split = []
+        for name, fn in steps.items():
+            ms, _ = host_ms(torch, fn, iters)
+            device_ms, n_ops, top = device_profile(torch, fn)
+            split.append(f"{name} {ms:.2f} ms")
+            busy = "not measured" if device_ms is None else f"{device_ms / ms:.3f}"
+            dev = "not measured (no device time in the trace)" if device_ms is None else f"{device_ms:.3f} ms"
+            print(f"profile {label} batch {B} {name}: host {ms:.2f} ms, device {dev}, busy {busy}, "
+                  f"{n_ops:.0f} device ops per run [{tag}]", flush=True)
+            for op, op_ms, n in top:
+                print(f"    {op_ms:9.3f} ms {n:7.1f}x  {op[:100]}", flush=True)
+        print(f"end-to-end try-on ({label}, routing + bf16 forward, full width): batch {B} {e2e_ms:.2f} ms, "
+              f"{B / e2e_ms * 1e3:.1f} imgs/s (median of {iters}; {' + '.join(split)}) [{tag}]", flush=True)
+
+
+def on_card(torch, d):
+    return {k: torch.as_tensor(v, device="cuda") for k, v in d.items()}
+
+
+def tryon_batches(torch, collate, ds):
+    """(B, person, garment, iters) at batch 16 and batch 1, on the card."""
+    p16 = on_card(torch, collate([ds[i] for i in range(16)]))
+    g16 = on_card(torch, collate([ds[(i + 1) % 16] for i in range(16)]))
+    return [(16, p16, g16, 10), (1, on_card(torch, collate([ds[0]])), on_card(torch, collate([ds[1]])), 20)]
+
+
 def slice_phase(torch, wk, ck, tag, tmp):
+    """Full serving through cli.test (fused route), card vs CPU, bf16 vs fp32,
+    end-to-end timing.  Returns the serving run's launch counts."""
     from pasta_gan_tpu_torch.cli import test as cli
     from pasta_gan_tpu_torch.data.dataset import (
         SyntheticUvitonDataset, collate, prepare_tryon_batch, tryon_warp_inputs,
@@ -358,23 +563,10 @@ def slice_phase(torch, wk, ck, tag, tmp):
     g = torch.Generator().manual_seed(0)
     gen = GeneratorFull(img_resolution=256, channel_base=16384, channel_max=512).reset_parameters(g)
     snap = os.path.join(tmp, "snapshot.pt")
-    save_snapshot(snap, gen.state_dict(), 0.1 * torch.randn(512, generator=g), {"model": gen.config})
-    outdir = os.path.join(tmp, "tryon")
-
-    ck.reset_launch_counts()
-    t0 = time.perf_counter()
-    written = cli.main(["--network", snap, "--synthetic", "16", "--batchsize", "16", "--outdir", outdir])
-    torch.cuda.synchronize()
-    cli_s = time.perf_counter() - t0
-    launches = ck.launch_counts()
-    print(f"cli.test: {len(written)} images in {cli_s:.2f} s (first call, includes loading); "
-          f"launches {launches} [{tag}]", flush=True)
-    assert len(written) == 16 and all(os.path.getsize(p) > 1000 for p in written), "missing try-on PNGs"
-    for p in written:
-        with open(p, "rb") as f:
-            assert f.read(8) == b"\x89PNG\r\n\x1a\n", p
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched on the serving path"
+    save_snapshot(snap, gen.state_dict(), 0.1 * torch.randn(512, generator=g),
+                  {"model": gen.config, "generator": gen.variant})
+    del gen
+    launches = serve(torch, cli, ck, tag, "serving_full", ["--network", snap, "--outdir", os.path.join(tmp, "tryon")])
 
     # ---- the card's result against the port's CPU path on a small input
     ds = SyntheticUvitonDataset(num_samples=4, seed=3)
@@ -383,14 +575,7 @@ def slice_phase(torch, wk, ck, tag, tmp):
     b_cpu = prepare_tryon_batch(person, garment, device="cpu")
     r = tryon_warp_inputs(person, garment, device="cpu")
     patches = wk.norm_warp_reference(r["src_u"], r["src_l"], r["minv_norm"], r["valid_norm"], r["n_upper"], r["patch_hw"])
-    near = near_threshold_pixels(torch, wk, patches, r["minv_denorm"], r["valid_denorm"], r["frame_hw"],
-                                 r["erode_parts"])[..., None]
-    worst = 0.0
-    for k in b_cpu:
-        d = (b_gpu[k].cpu() - b_cpu[k]).abs()
-        if d.shape[1:3] == near.shape[1:3]:
-            d = d * ~near
-        worst = max(worst, float(d.max()))
+    worst, n_near = batch_diff(torch, wk, b_gpu, b_cpu, r, patches)
     assert worst <= TOL, f"try-on batch on the card differs from the CPU path: {worst}"
     thin = GeneratorFull(img_resolution=256, channel_base=512, channel_max=32)
     thin.reset_parameters(torch.Generator().manual_seed(1))
@@ -399,20 +584,14 @@ def slice_phase(torch, wk, ck, tag, tmp):
         o_gpu = cli.tryon_forward(thin.cuda(), torch.zeros(512, device="cuda"), {k: v.cuda() for k, v in b_cpu.items()})
     gerr = float((o_gpu.cpu() - o_cpu).abs().max())
     ok = torch.allclose(o_gpu.cpu(), o_cpu, rtol=1e-2, atol=1e-2)
-    print(f"card vs CPU (batch 2): routing max_abs_err={worst:.3g} ({int(near.sum())} near-threshold "
+    print(f"card vs CPU (batch 2): routing max_abs_err={worst:.3g} ({n_near} near-threshold "
           f"pixels excluded), thin-generator finetune max_abs_err={gerr:.3g} [{tag}]", flush=True)
     assert ok, "generator output on the card differs from the CPU path"
 
     # ---- the timed bf16 forward against the same snapshot's fp32 forward, full width
     gen, w_avg = cli.load_generator(snap, torch.device("cuda"))
-
-    def on_card(d):
-        return {k: torch.as_tensor(v, device="cuda") for k, v in d.items()}
-
-    ds = SyntheticUvitonDataset(num_samples=16)
-    p16 = on_card(collate([ds[i] for i in range(16)]))
-    g16 = on_card(collate([ds[(i + 1) % 16] for i in range(16)]))
-    p1, g1 = on_card(collate([ds[0]])), on_card(collate([ds[1]]))
+    batches = tryon_batches(torch, collate, SyntheticUvitonDataset(num_samples=16))
+    _, p16, g16, _ = batches[0]
     b32 = prepare_tryon_batch(p16, g16, device="cuda")
     o32 = cli.tryon_forward(gen, w_avg, b32)
     gen.set_dtype(torch.bfloat16)
@@ -426,43 +605,85 @@ def slice_phase(torch, wk, ck, tag, tmp):
     del o32, o16, b32
 
     # ---- end-to-end timing (routing + bf16 forward) and where the time goes
-    def route(p, gm):
-        b = prepare_tryon_batch(p, gm, device="cuda")
-        return {k: v.to(torch.bfloat16) for k, v in b.items()}
-
-    def host_ms(fn, iters):
-        """Median wall ms of one synchronised run, and the last output."""
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize()
-        ts = []
-        for _ in range(iters):
-            t0 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            ts.append(time.perf_counter() - t0)
-        return statistics.median(ts) * 1e3, out
-
     torch.cuda.reset_peak_memory_stats()
-    for B, p, gm, iters in ((16, p16, g16, 10), (1, p1, g1, 20)):
-        e2e_ms, out = host_ms(lambda: cli.tryon_forward(gen, w_avg, route(p, gm)), iters)
-        assert tuple(out.shape) == (B, 256, 256, 3) and bool(torch.isfinite(out.float()).all())
-        batch = route(p, gm)
-        steps = {"routing": lambda: route(p, gm), "forward": lambda: cli.tryon_forward(gen, w_avg, batch)}
-        split = []
-        for name, fn in steps.items():
-            ms, _ = host_ms(fn, iters)
-            device_ms, n_ops, top = device_profile(torch, fn)
-            split.append(f"{name} {ms:.2f} ms")
-            busy = "not measured" if device_ms is None else f"{device_ms / ms:.3f}"
-            dev = "not measured (no device time in the trace)" if device_ms is None else f"{device_ms:.3f} ms"
-            print(f"profile batch {B} {name}: host {ms:.2f} ms, device {dev}, busy {busy}, "
-                  f"{n_ops:.0f} device ops per run [{tag}]", flush=True)
-            for op, op_ms, n in top:
-                print(f"    {op_ms:9.3f} ms {n:7.1f}x  {op[:100]}", flush=True)
-        print(f"end-to-end try-on (routing + bf16 forward, full width): batch {B} {e2e_ms:.2f} ms, "
-              f"{B / e2e_ms * 1e3:.1f} imgs/s (median of {iters}; {' + '.join(split)}) [{tag}]", flush=True)
+    time_tryon(torch, cli, gen, w_avg, lambda p, gm: prepare_tryon_batch(p, gm, device="cuda"), batches, "full", tag)
     print(f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated [{tag}]", flush=True)
+    return launches
+
+
+def v18_phase(torch, wk, ck, tag, tmp):
+    """Released-256 serving: a full-width GeneratorV18 through cli.test on
+    the fused and the separate denorm route, the two routes' batches against
+    each other on the card, the card against the CPU path (routing and a thin
+    V18 forward, batch 2), end-to-end timing on both routes.  Returns the
+    two serving runs' launch counts by path."""
+    from pasta_gan_tpu_torch.cli import test as cli
+    from pasta_gan_tpu_torch.data.dataset import (
+        SyntheticUvitonDataset, collate, prepare_tryon_batch_v18, tryon_warp_inputs_v18,
+    )
+    from pasta_gan_tpu_torch.io.checkpoints import save_snapshot
+    from pasta_gan_tpu_torch.models import GeneratorV18
+
+    g = torch.Generator().manual_seed(0)
+    gen = GeneratorV18(img_resolution=256, channel_base=16384, channel_max=512).reset_parameters(g)
+    snap = os.path.join(tmp, "snapshot_v18.pt")
+    save_snapshot(snap, gen.state_dict(), 0.1 * torch.randn(512, generator=g),
+                  {"model": gen.config, "generator": gen.variant})
+    del gen
+    launches = {}
+    for denorm in ("fused", "separate"):
+        path = f"serving_v18_{denorm}"
+        launches[path] = serve(torch, cli, ck, tag, path, [
+            "--network", snap, "--generator", "v18", "--denorm", denorm,
+            "--outdir", os.path.join(tmp, f"tryon_v18_{denorm}")])
+
+    def plain_patches(r):
+        out = wk.norm_warp_reference(r["src_u"], r["src_l"], r["minv_norm"], r["valid_norm"], r["n_upper"],
+                                     r["patch_hw"])
+        return out[:, :, 0:4].contiguous()
+
+    # ---- the two routes against each other on the card, batch 16
+    batches = tryon_batches(torch, collate, SyntheticUvitonDataset(num_samples=16))
+    _, p16, g16, _ = batches[0]
+    fused = prepare_tryon_batch_v18(p16, g16, device="cuda", denorm="fused")
+    separate = prepare_tryon_batch_v18(p16, g16, device="cuda", denorm="separate")
+    r = tryon_warp_inputs_v18(p16, g16, device="cuda")
+    worst, n_near = batch_diff(torch, wk, separate, fused, r, plain_patches(r))
+    print(f"V18 routing on the card, separate vs fused route (batch 16): max |diff| {worst:.3g} "
+          f"({n_near} near-threshold pixels excluded) [{tag}]", flush=True)
+    assert worst <= TOL, f"the separate route differs from the fused one: {worst}"
+    del fused, separate, r
+
+    # ---- the card's result against the port's CPU path on a small input
+    ds = SyntheticUvitonDataset(num_samples=4, seed=3)
+    person, garment = collate([ds[0], ds[1]]), collate([ds[2], ds[3]])
+    b_cpu = prepare_tryon_batch_v18(person, garment, device="cpu")
+    r = tryon_warp_inputs_v18(person, garment, device="cpu")
+    errs = {}
+    for denorm in ("fused", "separate"):
+        b_gpu = prepare_tryon_batch_v18(person, garment, device="cuda", denorm=denorm)
+        errs[denorm], n_near = batch_diff(torch, wk, b_gpu, b_cpu, r, plain_patches(r))
+        assert errs[denorm] <= TOL, f"V18 batch ({denorm}) on the card differs from the CPU path: {errs[denorm]}"
+    thin = GeneratorV18(img_resolution=256, channel_base=512, channel_max=32)
+    thin.reset_parameters(torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        o_cpu = cli.tryon_forward(thin.eval(), torch.zeros(512), b_cpu)
+        o_gpu = cli.tryon_forward(thin.cuda(), torch.zeros(512, device="cuda"), {k: v.cuda() for k, v in b_cpu.items()})
+    gerr = float((o_gpu.cpu() - o_cpu).abs().max())
+    print(f"V18 card vs CPU (batch 2): routing max_abs_err fused {errs['fused']:.3g} / separate "
+          f"{errs['separate']:.3g} ({n_near} near-threshold pixels excluded), thin-generator finetune "
+          f"max_abs_err={gerr:.3g} [{tag}]", flush=True)
+    assert torch.allclose(o_gpu.cpu(), o_cpu, rtol=1e-2, atol=1e-2), "V18 generator on the card differs from the CPU"
+
+    # ---- end-to-end timing on both routes, bf16
+    gen, w_avg = cli.load_generator(snap, torch.device("cuda"), "v18")
+    gen.set_dtype(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    for denorm in ("fused", "separate"):
+        time_tryon(torch, cli, gen, w_avg,
+                   lambda p, gm: prepare_tryon_batch_v18(p, gm, device="cuda", denorm=denorm),  # noqa: B023
+                   batches, f"v18 {denorm}", tag)
+    print(f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated (V18) [{tag}]", flush=True)
     return launches
 
 
@@ -517,8 +738,9 @@ def train_phase(torch, ck, tag, tmp):
     for r in records:
         bad = {k: v for k, v in r.items() if not math.isfinite(v)}
         assert not bad, f"non-finite training stats: {bad}"
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched on the training path"
+    ran = {name for name, n in launches.items() if n > 0}
+    expected = PATH_KERNELS["training"]
+    assert ran == expected, f"training launched {sorted(ran)}, expected {sorted(expected)}"
     init = trainer.init_state(torch.Generator().manual_seed(0))  # what the run started from
     moved = {name: any(not torch.equal(a, b) for a, b in zip(getattr(state, name).parameters(), ref.parameters()))
              for name, ref in (("G", init.G), ("D", init.D), ("G_ema", init.G))}
@@ -654,21 +876,24 @@ def main():
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
     results = kernel_phase(torch, wk, tag)
+    results.update(v18_kernel_phase(torch, wk, tag))
     results.update(fir_kernel_phase(torch, tag))
     with tempfile.TemporaryDirectory() as tmp:
-        serve_launches = slice_phase(torch, wk, ck, tag, tmp)
-        train_launches = train_phase(torch, ck, tag, tmp)
+        launches = {"serving_full": slice_phase(torch, wk, ck, tag, tmp)}
+        launches.update(v18_phase(torch, wk, ck, tag, tmp))
+        launches["training"] = train_phase(torch, ck, tag, tmp)
     train_card_vs_cpu(torch, tag)
 
     kernels = [
         {"name": name, "route": "cuda", "source": f"pasta_gan_tpu_torch/csrc/{ck.KERNELS[name].source}",
-         "replaces": REPLACES[name], "launches": train_launches[name], "max_abs_err": res["err"],
-         "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+         "replaces": REPLACES[name], "launches": sum(counts[name] for counts in launches.values()),
+         "max_abs_err": res["err"], "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
          "bound_by": res["bound_by"], "library_ms": res["library_ms"],
-         "launches_serving": serve_launches[name]}
+         "launches_by_path": {path: counts[name] for path, counts in launches.items()}}
         for name, res in results.items()
     ]
     assert sorted(k["name"] for k in kernels) == sorted(ck.KERNELS), "a kernel is missing from the kernels line"
+    assert all(k["launches"] > 0 for k in kernels), "a kernel launched on no path"
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -33,61 +33,17 @@
 
 #include <cuda_runtime.h>
 
+#include "warp_math.cuh"
+
 namespace {
+
+using namespace pasta;
 
 constexpr int TILE = 32;
 constexpr int HALO = 2;
 constexpr int TH = TILE + 2 * HALO;
 constexpr int BY = 8;  // blockDim.y; each thread owns TILE / BY rows of one column
 constexpr int ROWS = TILE / BY;
-
-struct Homography {
-  float m[9];
-};
-
-__device__ __forceinline__ float lerp2(float a, float b, float wa, float wb) {
-  return __fadd_rn(__fmul_rn(a, wa), __fmul_rn(b, wb));
-}
-
-__device__ __forceinline__ void src_coords(const Homography& M, int x, int y, float& sx, float& sy) {
-  const float gx = (float)x, gy = (float)y;
-  const float* m = M.m;
-  float denom = __fadd_rn(__fadd_rn(__fmul_rn(m[6], gx), __fmul_rn(m[7], gy)), m[8]);
-  if (fabsf(denom) < 1e-8f) denom = 1e-8f;
-  sx = __fdiv_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[0], gx), __fmul_rn(m[1], gy)), m[2]), denom);
-  sy = __fdiv_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[3], gx), __fmul_rn(m[4], gy)), m[5]), denom);
-}
-
-// Bilinear taps of planar channels with a constant-zero border.  Returns false
-// when (sx, sy) lies outside (-1, Ws) x (-1, Hs) or is not finite.
-struct Taps {
-  int i00, i01, i10, i11;  // -1 = zero tap
-  float ofx, fx, ofy, fy;
-};
-
-__device__ __forceinline__ bool make_taps(float sx, float sy, int Hs, int Ws, Taps& t) {
-  if (!(sx > -1.f && sx < (float)Ws && sy > -1.f && sy < (float)Hs)) return false;
-  const float x0 = floorf(sx), y0 = floorf(sy);
-  t.fx = __fsub_rn(sx, x0);
-  t.fy = __fsub_rn(sy, y0);
-  t.ofx = __fsub_rn(1.f, t.fx);
-  t.ofy = __fsub_rn(1.f, t.fy);
-  const int xi = (int)x0, yi = (int)y0;
-  const bool x0ok = xi >= 0, x1ok = xi + 1 < Ws, y0ok = yi >= 0, y1ok = yi + 1 < Hs;
-  t.i00 = (y0ok && x0ok) ? yi * Ws + xi : -1;
-  t.i01 = (y0ok && x1ok) ? yi * Ws + xi + 1 : -1;
-  t.i10 = (y1ok && x0ok) ? (yi + 1) * Ws + xi : -1;
-  t.i11 = (y1ok && x1ok) ? (yi + 1) * Ws + xi + 1 : -1;
-  return true;
-}
-
-__device__ __forceinline__ float sample(const float* __restrict__ plane, const Taps& t) {
-  const float p00 = t.i00 >= 0 ? __ldg(plane + t.i00) : 0.f;
-  const float p01 = t.i01 >= 0 ? __ldg(plane + t.i01) : 0.f;
-  const float p10 = t.i10 >= 0 ? __ldg(plane + t.i10) : 0.f;
-  const float p11 = t.i11 >= 0 ? __ldg(plane + t.i11) : 0.f;
-  return lerp2(lerp2(p00, p01, t.ofx, t.fx), lerp2(p10, p11, t.ofx, t.fx), t.ofy, t.fy);
-}
 
 __global__ void __launch_bounds__(TILE * BY)
 composite_kernel(const float* __restrict__ src, const float* __restrict__ minv,
@@ -126,9 +82,7 @@ composite_kernel(const float* __restrict__ src, const float* __restrict__ minv,
       }
       continue;  // uniform across the block: no barrier is skipped by some threads only
     }
-    Homography M;
-#pragma unroll
-    for (int i = 0; i < 9; ++i) M.m[i] = __ldg(minv + (size_t)bp * 9 + i);
+    const Homography M = load_homography(minv + (size_t)bp * 9);
     const float* base = src + (size_t)bp * 4 * patch;
     const float* mask = base + 3 * patch;
 

@@ -3,7 +3,9 @@
 Counterpart of `pasta_gan_tpu/data/dataset.py`: host code builds per-sample
 numpy dicts (image, stickman, keypoints, parsing masks); `prepare_tryon_batch`
 and `prepare_train_batch` move a collated batch to the device and run the
-patch routing there.
+patch routing there; `prepare_tryon_batch_v18` builds the released-256
+checkpoint's batch.  The try-on batches take the routes' `denorm` argument
+("fused" or "separate", data/warp.py).
 
 The port reads the synthetic fixture only: decoding the real dataset's
 JPEG/PNG files (`load_sample`) waits for a later slice.
@@ -19,7 +21,13 @@ import torch
 from .. import resolve_device
 from . import masks as masks_mod
 from . import stickman
-from .warp import route_patches_batch, route_patches_transfer_batch, transfer_warp_inputs
+from .warp import (
+    route_patches_batch,
+    route_patches_transfer_batch,
+    route_patches_v19_batch,
+    transfer_warp_inputs,
+    v19_warp_inputs,
+)
 
 
 def pad_to_square(img: np.ndarray, value: int) -> tuple[np.ndarray, int]:
@@ -141,13 +149,14 @@ def tryon_warp_inputs(person, garment, box_factor: int = 2, device="cuda") -> di
     return transfer_warp_inputs(*routing_args, box_factor=box_factor)
 
 
-def prepare_tryon_batch(person, garment, box_factor: int = 2, device="cuda") -> Dict[str, torch.Tensor]:
+def prepare_tryon_batch(person, garment, box_factor: int = 2, device="cuda",
+                        denorm: str = "fused") -> Dict[str, torch.Tensor]:
     """Unpaired try-on batch: garment patches re-projected into the person's
     pose, the person keeping only its retain regions.  `person`/`garment` are
     collated host dicts (numpy or tensors); returns float32 NHWC tensors on
     `device` with the JAX package's keys and shapes."""
     p_img, pose, p_retain, routing_args = _tryon_sources(person, garment, resolve_device(device))
-    routed = route_patches_transfer_batch(*routing_args, box_factor=box_factor)
+    routed = route_patches_transfer_batch(*routing_args, box_factor=box_factor, denorm=denorm)
     denorm_upper_mask = (routed.denorm_upper_img.sum(-1, keepdim=True) > 0).float()
     denorm_lower_mask = (routed.denorm_lower_img.sum(-1, keepdim=True) > 0).float()
 
@@ -161,6 +170,53 @@ def prepare_tryon_batch(person, garment, box_factor: int = 2, device="cuda") -> 
         "denorm_lower_img": routed.denorm_lower_img * 2.0 - 1.0,
         "denorm_upper_mask": denorm_upper_mask,
         "denorm_lower_mask": denorm_lower_mask,
+        "person_img": p_real,
+    }
+
+
+def _tryon_sources_v18(person, garment, dev):
+    def f32(d, k):
+        return torch.as_tensor(d[k], device=dev).float()
+
+    p_img = f32(person, "image") / 255.0
+    g_img = f32(garment, "image") / 255.0
+    p_pose = f32(person, "pose") / 255.0  # the released checkpoint's stickman is in [0, 1]
+    g_upper_mask = f32(garment, "upper_mask")
+    p_lower_mask = f32(person, "lower_test_mask" if "lower_test_mask" in person else "lower_mask")
+    routing_args = (
+        g_img * g_upper_mask, g_upper_mask, f32(garment, "pose") / 255.0,
+        p_img * p_lower_mask, p_lower_mask, p_pose,
+        f32(garment, "keypoints"), f32(person, "keypoints"),
+    )
+    return p_img, p_pose, f32(person, "retain_mask"), routing_args
+
+
+def tryon_warp_inputs_v18(person, garment, box_factor: int = 2, device="cuda") -> dict:
+    """The routing kernels' operands for a collated released-256 batch (what
+    `prepare_tryon_batch_v18` feeds them)."""
+    _, _, _, routing_args = _tryon_sources_v18(person, garment, resolve_device(device))
+    return v19_warp_inputs(*routing_args, box_factor=box_factor)
+
+
+def prepare_tryon_batch_v18(person, garment, box_factor: int = 2, device="cuda",
+                            denorm: str = "fused") -> Dict[str, torch.Tensor]:
+    """The released-256 checkpoint's batch (`pasta_gan_tpu/data/dataset.py:
+    prepare_tryon_batch_v18`): a 60-channel style input (the 10 norm image
+    patches and the 10 norm stickman patches), the retain image, a 6-channel
+    pose (stickman and retain) and the denorms re-projected into the person's
+    pose with eroded upper masks.  Float32 NHWC tensors on `device`."""
+    p_img, p_pose, p_retain, routing_args = _tryon_sources_v18(person, garment, resolve_device(device))
+    routed = route_patches_v19_batch(*routing_args, box_factor=box_factor, denorm=denorm)
+    p_real = p_img * 2.0 - 1.0
+    retain = p_retain * p_real - (1.0 - p_retain)
+    return {
+        "style_input": torch.cat([routed.norm_img, routed.norm_pose], dim=-1) * 2.0 - 1.0,
+        "retain": retain,
+        "pose": torch.cat([p_pose * 2.0 - 1.0, retain], dim=-1),
+        "denorm_upper_img": routed.denorm_upper_img * 2.0 - 1.0,
+        "denorm_lower_img": routed.denorm_lower_img * 2.0 - 1.0,
+        "denorm_upper_mask": (routed.denorm_upper_img.sum(-1, keepdim=True) > 0).float(),
+        "denorm_lower_mask": (routed.denorm_lower_img.sum(-1, keepdim=True) > 0).float(),
         "person_img": p_real,
     }
 

@@ -10,12 +10,23 @@ Counterpart of `pasta_gan_tpu/data/warp.py` (the reference's per-sample
   (`== 255` on uint8, here >= 254.5/255);
 * parts composite in order, later parts overwriting earlier ones.
 
-Two routes share the kernels: the unpaired try-on route
-(`route_patches_transfer_batch`) and the training path's self-routing
-(`route_patches_batch`).  On CUDA tensors the NORM warps run as one
-`norm_warp` kernel launch and the DENORM + erode + composite as one
-`composite` launch (ops/warp_kernels.py); on
-CPU tensors the same wrappers run their plain PyTorch versions.
+Three routes share the kernels: the unpaired try-on route
+(`route_patches_transfer_batch`), the training path's self-routing
+(`route_patches_batch`) and the released-256 (V19) test route
+(`route_patches_v19_batch`).  On CUDA tensors the NORM warps run as one
+`norm_warp` kernel launch.  The DENORM step takes one of two routes, chosen
+by each route's `denorm` argument (the JAX package's
+`TUNING.fused_composite`):
+
+* "fused" (the default): denorm + saturate + erode + composite as one
+  `composite` launch;
+* "separate": the separate-pass pipeline, one `denorm_warp` launch that
+  writes every part's full-frame warp, then the threshold, erosion and
+  select chain as PyTorch ops (`composite_reference` with `warp=denorm_warp`).
+
+Both give the same routing (the kernels repeat the plain versions' rounded
+operations).  On CPU tensors the same wrappers run their plain PyTorch
+versions (ops/warp_kernels.py).
 """
 
 from __future__ import annotations
@@ -27,36 +38,37 @@ import torch
 from ..ops.warp_kernels import (
     MASK_SATURATION_THRESHOLD,
     composite,
+    composite_reference,
+    denorm_warp,
     denorm_warp_reference,
     erode_binary,
     norm_warp,
-    norm_warp_reference,
 )
 from ..ops.warp_math import inv3x3
 from .geometry import HAND_PARTS, LOWER_PART_START, NUM_PARTS, part_transforms
 
 __all__ = [
+    "DENORM_ROUTES",
     "MASK_SATURATION_THRESHOLD",
     "RoutedPatches",
+    "RoutedPatchesV19",
     "erode_binary",
     "route_patches_batch",
     "route_patches_transfer_batch",
+    "route_patches_v19_batch",
     "self_warp_inputs",
     "transfer_warp_inputs",
+    "v19_warp_inputs",
     "warp_perspective",
 ]
+
+DENORM_ROUTES = ("fused", "separate")
 
 
 def warp_perspective(img: torch.Tensor, M: torch.Tensor, out_hw, border: str = "constant") -> torch.Tensor:
     """cv2.warpPerspective(img [H, W, C], M [3, 3] src->dst, (w, h)), bilinear."""
-    minv = inv3x3(M)[None, None]
-    if border == "replicate":
-        ones = torch.ones((1, 1), dtype=torch.float32, device=img.device)
-        out = norm_warp_reference(img[None], img[None], minv, ones, 1, out_hw)
-    elif border == "constant":
-        out = denorm_warp_reference(img.permute(2, 0, 1)[None, None], minv, out_hw)
-    else:
-        raise ValueError(f"border must be 'replicate' or 'constant', got {border!r}")
+    ones = torch.ones((1, 1), dtype=torch.float32, device=img.device)
+    out = denorm_warp_reference(img.permute(2, 0, 1)[None, None], inv3x3(M)[None, None], ones, out_hw, border)
     return out[0, 0].permute(1, 2, 0)
 
 
@@ -148,12 +160,21 @@ def self_warp_inputs(upper_img, lower_img, upper_mask, lower_mask, keypoints, bo
                            False, (h, w))
 
 
-def _route(r: dict) -> RoutedPatches:
+def _denorm(srcs: torch.Tensor, r: dict, denorm: str):
+    """The DENORM step of a route: (group images [B, G, 3, H, W], hand masks
+    [B, n_hands, H, W]) from the planar 4-channel patches `srcs`."""
+    args = (srcs, r["minv_denorm"], r["valid_denorm"], r["frame_hw"], r["groups"], r["erode_parts"],
+            r["hand_parts"])
+    if denorm == "fused":
+        return composite(*args)
+    if denorm == "separate":
+        return composite_reference(*args, warp=denorm_warp)
+    raise ValueError(f"denorm must be one of {DENORM_ROUTES}, got {denorm!r}")
+
+
+def _route(r: dict, denorm: str) -> RoutedPatches:
     patches = norm_warp(r["src_u"], r["src_l"], r["minv_norm"], r["valid_norm"], r["n_upper"], r["patch_hw"])
-    g_imgs, hands = composite(
-        patches, r["minv_denorm"], r["valid_denorm"], r["frame_hw"], r["groups"], r["erode_parts"],
-        r["hand_parts"],
-    )
+    g_imgs, hands = _denorm(patches, r, denorm)
     n = r["n_upper"]
     return RoutedPatches(
         norm_img=_stack_ch(patches[:, :n, 0:3]),
@@ -168,13 +189,88 @@ def _route(r: dict) -> RoutedPatches:
     )
 
 
-def route_patches_batch(*args, **kwargs) -> RoutedPatches:
+def route_patches_batch(*args, denorm: str = "fused", **kwargs) -> RoutedPatches:
     """Training-path self-routing (arguments of `self_warp_inputs`): one
-    `norm_warp` and one `composite` call for the whole batch."""
-    return _route(self_warp_inputs(*args, **kwargs))
+    `norm_warp` call for the whole batch, then the `denorm` route."""
+    return _route(self_warp_inputs(*args, **kwargs), denorm)
 
 
-def route_patches_transfer_batch(*args, **kwargs) -> RoutedPatches:
+def route_patches_transfer_batch(*args, denorm: str = "fused", **kwargs) -> RoutedPatches:
     """Unpaired try-on routing (arguments of `transfer_warp_inputs`): one
-    `norm_warp` and one `composite` call for the whole batch."""
-    return _route(transfer_warp_inputs(*args, **kwargs))
+    `norm_warp` call for the whole batch, then the `denorm` route."""
+    return _route(transfer_warp_inputs(*args, **kwargs), denorm)
+
+
+# ------------------------------------------------------------ released-256 (V19)
+
+
+class RoutedPatchesV19(NamedTuple):
+    norm_img: torch.Tensor  # [B, h, w, 30] parts 0-5 from the garment, 6-9 from the person
+    norm_pose: torch.Tensor  # [B, h, w, 30] the per-part warped stickmen
+    denorm_upper_img: torch.Tensor  # [B, H, W, 3]
+    denorm_lower_img: torch.Tensor  # [B, H, W, 3]
+
+
+def v19_warp_inputs(
+    garment_upper_img: torch.Tensor,  # [B, H, W, 3] garment person's upper clothes, [0, 1]
+    garment_upper_mask: torch.Tensor,  # [B, H, W, 1]
+    garment_pose: torch.Tensor,  # [B, H, W, 3] garment person's stickman, [0, 1]
+    person_lower_img: torch.Tensor,  # [B, H, W, 3] target person's own lower clothes
+    person_lower_mask: torch.Tensor,  # [B, H, W, 1]
+    person_pose: torch.Tensor,  # [B, H, W, 3] target person's stickman
+    garment_keypoints: torch.Tensor,  # [B, 18, 3]
+    person_keypoints: torch.Tensor,  # [B, 18, 3]
+    box_factor: int = 2,
+    img_h: Optional[int] = None,
+    pad_x: float = 32.0,
+) -> dict:
+    """Geometry and kernel operands of the released-256 test routing
+    (`pasta_gan_tpu/data/warp.py:route_patches_v19_single`):
+
+    * parts 0-5 normalize the garment's image, mask and stickman with the
+      garment's M; parts 6-9 the person's own lower clothes, mask and
+      stickman with the person's M.  Each source is one 8-channel frame
+      (image, mask, stickman, a zero pad), so one `norm_warp` launch at C = 8
+      serves all 10 parts;
+    * every part re-projects with the person's M_inv and the person's
+      validity; masks of parts 0-5 are 5x5-eroded; there are no hand parts."""
+    H, W = garment_upper_img.shape[1:3]
+    h, w = H >> box_factor, W >> box_factor
+    L = LOWER_PART_START
+    kw = dict(img_h=img_h or H, patch_w=w, patch_h=h, pad_x=pad_x, knee_fallbacks=True)
+    Mg, _, valid_g = part_transforms(garment_keypoints, **kw)
+    Mp, Mp_inv, valid_p = part_transforms(person_keypoints, **kw)
+    pad = torch.zeros_like(garment_upper_mask[..., :1])
+
+    def frame(img, mask, pose):
+        return torch.cat([img, mask[..., :1], pose, pad], dim=-1).float().contiguous()
+
+    return dict(
+        src_u=frame(garment_upper_img, garment_upper_mask, garment_pose),
+        src_l=frame(person_lower_img, person_lower_mask, person_pose),
+        minv_norm=inv3x3(torch.cat([Mg[:, :L], Mp[:, L:]], dim=1)).contiguous(),
+        valid_norm=torch.cat([valid_g[:, :L], valid_p[:, L:]], dim=1).float().contiguous(),
+        n_upper=L,
+        patch_hw=(h, w),
+        minv_denorm=inv3x3(Mp_inv).contiguous(),
+        valid_denorm=valid_p.float().contiguous(),
+        frame_hw=(H, W),
+        groups=(0,) * L + (1,) * (NUM_PARTS - L),
+        erode_parts=tuple(p < L for p in range(NUM_PARTS)),
+        hand_parts=(),
+    )
+
+
+def route_patches_v19_batch(*args, denorm: str = "fused", **kwargs) -> RoutedPatchesV19:
+    """Released-256 test routing (arguments of `v19_warp_inputs`): one
+    `norm_warp` call at C = 8 for the whole batch, then the `denorm` route
+    on the image and mask channels."""
+    r = v19_warp_inputs(*args, **kwargs)
+    patches = norm_warp(r["src_u"], r["src_l"], r["minv_norm"], r["valid_norm"], r["n_upper"], r["patch_hw"])
+    g_imgs, _ = _denorm(patches[:, :, 0:4].contiguous(), r, denorm)
+    return RoutedPatchesV19(
+        norm_img=_stack_ch(patches[:, :, 0:3]),
+        norm_pose=_stack_ch(patches[:, :, 4:7]),
+        denorm_upper_img=g_imgs[:, 0].permute(0, 2, 3, 1),
+        denorm_lower_img=g_imgs[:, 1].permute(0, 2, 3, 1),
+    )

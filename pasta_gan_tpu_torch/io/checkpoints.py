@@ -3,8 +3,9 @@
 Counterpart of the JAX package's `io/checkpoints.py` (Orbax):
 
 * a network snapshot holds generator weights + w_avg + config, where
-  `config` holds the generator's constructor arguments under "model"; it is
-  what serving loads;
+  `config` holds the generator's constructor arguments under "model" and its
+  synthesis variant ("full" or "v18", `models.GENERATORS`) under
+  "generator"; it is what serving loads;
 * a train-state checkpoint holds the whole `train/state.py:TrainState`
   (G, D, G_ema, both Adam states, w_avg, pl_mean, the ADA counters, the
   step) and the resolved training config, for `--resume`.

@@ -1,4 +1,4 @@
-"""JAX variables -> this package's state_dicts: GeneratorFull, Discriminator, VGG19.
+"""JAX variables -> this package's state_dicts: GeneratorFull, GeneratorV18, Discriminator, VGG19.
 
 The reverse of `pasta_gan_tpu/io/torch_import.py:_ref_key`, kept here so the
 port never imports the JAX package.  `variables` is the JAX package's nested
@@ -73,7 +73,9 @@ def port_key(path: Tuple[str, ...]) -> Tuple[str, str]:
 
 
 def state_dict_from_jax(variables, expected: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-    """Translate JAX GeneratorFull `variables` into a port state_dict.
+    """Translate JAX GeneratorFull or GeneratorV18 `variables` into a port
+    state_dict (the V18 mask heads `m_weight1` / `m_weight2` are 1x1 HWIO
+    convs like every other weight).
 
     Raises on a collection other than "params", and, when `expected` (the
     target module's state_dict) is given, on any missing, extra or mis-shaped

@@ -39,6 +39,8 @@ def cat_feats_dict(feats) -> Dict[str, torch.Tensor]:
 
 
 class GeneratorFull(nn.Module):
+    variant = "full"  # the synthesis variant; a snapshot records it (cli/test.py:load_generator)
+
     def __init__(self, z_dim=0, c_dim=512, w_dim=512, img_resolution=256, img_channels=3,
                  mapping_layers=1, channel_base=16384, channel_max=512, conv_clamp=256.0,
                  use_noise=True, style_input_nc=42, dtype=torch.float32):
@@ -52,7 +54,7 @@ class GeneratorFull(nn.Module):
         self.synthesis = SynthesisNetworkFull(
             w_dim=w_dim, img_resolution=img_resolution, img_channels=img_channels,
             channel_base=channel_base, channel_max=channel_max, conv_clamp=conv_clamp,
-            use_noise=use_noise,
+            use_noise=use_noise, variant=self.variant,
         )
         self.num_ws = self.synthesis.num_ws
         self.mapping = MappingNetwork(z_dim, c_dim, w_dim, self.num_ws, num_layers=mapping_layers)

@@ -10,6 +10,12 @@ Wiring kept from the JAX package (and the reference it follows):
   the last block's ws;
 * SPADE refinement at the second-to-last resolution, fed by features of the
   denormalized garments, then the texture finetune block.
+
+Two variants: "full" (the last style block's ToRGB carries a 6-class parsing
+head whose argmax gives the SPADE branch its upper/lower masks) and "v18"
+(the released-256 checkpoint: two 1-channel sigmoid mask heads, read
+directly, and the texture block builds and discards the same heads so the
+parameter shapes match the checkpoint).
 """
 
 from __future__ import annotations
@@ -73,41 +79,51 @@ class SynthesisLayer(Layer):
 
 
 class ToRGBLayerFull(Layer):
-    """1x1 modulated conv without demodulation, plus the 6-class parsing head
-    on the last style block; both heads run as one conv over concatenated
-    output channels."""
+    """1x1 modulated conv without demodulation, plus an optional head on the
+    last style block: `head="parsing6"`, 6 parsing logits (`m_weight1`), or
+    `head="masks2"`, upper and lower sigmoid masks (`m_weight1`,
+    `m_weight2`).  All heads run as one conv over concatenated output
+    channels; each gets its own bias_act."""
 
-    def __init__(self, in_channels, out_channels, w_dim, conv_clamp=None, with_parsing=False,
-                 num_parsing_classes=6):
+    HEADS = {None: (), "parsing6": (("m_weight1", "m_bias1", 6, "linear"),),
+             "masks2": (("m_weight1", "m_bias1", 1, "sigmoid"), ("m_weight2", "m_bias2", 1, "sigmoid"))}
+
+    def __init__(self, in_channels, out_channels, w_dim, conv_clamp=None, head=None):
         super().__init__()
+        if head not in self.HEADS:
+            raise ValueError(f"head must be one of {sorted(self.HEADS, key=str)}, got {head!r}")
         self.in_channels, self.out_channels, self.conv_clamp = in_channels, out_channels, conv_clamp
         self.affine = FullyConnectedLayer(w_dim, in_channels, bias_init=1.0)
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, 1, 1))
         self.bias = nn.Parameter(torch.zeros(out_channels))
-        self.with_parsing = with_parsing
-        if with_parsing:
-            self.m_weight1 = nn.Parameter(torch.empty(num_parsing_classes, in_channels, 1, 1))
-            self.m_bias1 = nn.Parameter(torch.zeros(num_parsing_classes))
+        self.heads = self.HEADS[head]
+        for name_w, name_b, ch, _ in self.heads:
+            setattr(self, name_w, nn.Parameter(torch.empty(ch, in_channels, 1, 1)))
+            setattr(self, name_b, nn.Parameter(torch.zeros(ch)))
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
         _normal_(self.weight, generator)
         with torch.no_grad():
             self.bias.zero_()
-        if self.with_parsing:
-            _normal_(self.m_weight1, generator)
+        for name_w, name_b, _, _ in self.heads:
+            _normal_(getattr(self, name_w), generator)
             with torch.no_grad():
-                self.m_bias1.zero_()
+                getattr(self, name_b).zero_()
 
     def forward(self, x, w):
+        """Returns (img, aux): aux is None, the parsing logits, or the
+        (upper, lower) mask pair."""
         dt = self.compute_dtype
         styles = self.affine(w) * (1.0 / math.sqrt(self.in_channels))
-        weight = torch.cat([self.weight, self.m_weight1], 0) if self.with_parsing else self.weight
+        weight = torch.cat([self.weight] + [getattr(self, hw) for hw, _, _, _ in self.heads], 0)
         y = modulated_conv2d(x.to(dt), weight.to(dt), styles, demodulate=False)
         img = bias_act(y[:, : self.out_channels], self.bias, clamp=self.conv_clamp)
-        aux = None
-        if self.with_parsing:
-            aux = bias_act(y[:, self.out_channels :], self.m_bias1, clamp=self.conv_clamp)
+        outs, lo = [], self.out_channels
+        for _, name_b, ch, act in self.heads:
+            outs.append(bias_act(y[:, lo : lo + ch], getattr(self, name_b), act=act, clamp=self.conv_clamp))
+            lo += ch
+        aux = None if not outs else outs[0] if len(outs) == 1 else tuple(outs)
         return img, aux
 
 
@@ -116,7 +132,7 @@ class SynthesisBlockFull(Layer):
 
     def __init__(self, in_channels, out_channels, w_dim, resolution, img_channels, is_last,
                  is_style=False, merge_min_res=16, cat_channels=64, resample_filter=(1, 3, 3, 1),
-                 conv_clamp=None, use_noise=True):
+                 conv_clamp=None, use_noise=True, head="parsing6"):
         super().__init__()
         self.in_channels, self.resolution, self.merge_min_res = in_channels, resolution, merge_min_res
         common = dict(w_dim=w_dim, resolution=resolution, resample_filter=resample_filter,
@@ -130,7 +146,7 @@ class SynthesisBlockFull(Layer):
             self.merge_conv = Conv2dLayer(out_channels + cat_channels, out_channels, 1,
                                           resample_filter=resample_filter)
         self.torgb = ToRGBLayerFull(out_channels, img_channels, w_dim, conv_clamp=conv_clamp,
-                                    with_parsing=is_last and is_style)
+                                    head=head if is_last and is_style else None)
         _filter_buffer(self, resample_filter)
         self.reset_parameters()
 
@@ -167,14 +183,18 @@ class SynthesisBlockFull(Layer):
 class SynthesisNetworkFull(nn.Module):
     """Skip pyramid 4 -> img_resolution + SPADE refinement + texture finetune head."""
 
+    VARIANTS = {"full": "parsing6", "v18": "masks2"}  # variant -> the last style block's ToRGB head
+
     def __init__(self, w_dim, img_resolution, img_channels, channel_base=32768, channel_max=512,
-                 conv_clamp=None, use_noise=True, merge_min_res=16):
+                 conv_clamp=None, use_noise=True, merge_min_res=16, variant="full"):
         super().__init__()
-        self.w_dim, self.img_resolution = w_dim, img_resolution
+        if variant not in self.VARIANTS:
+            raise ValueError(f"variant must be one of {sorted(self.VARIANTS)}, got {variant!r}")
+        self.w_dim, self.img_resolution, self.variant = w_dim, img_resolution, variant
         self.channel_base, self.channel_max = channel_base, channel_max
         self.block_resolutions = [2**i for i in range(2, int(math.log2(img_resolution)) + 1)]
         common = dict(w_dim=w_dim, img_channels=img_channels, merge_min_res=merge_min_res,
-                      conv_clamp=conv_clamp, use_noise=use_noise)
+                      conv_clamp=conv_clamp, use_noise=use_noise, head=self.VARIANTS[variant])
         for res in self.block_resolutions:
             setattr(self, f"b{res}", SynthesisBlockFull(
                 self.channels(res // 2) if res > 4 else 0, self.channels(res), resolution=res,
@@ -183,9 +203,10 @@ class SynthesisNetworkFull(nn.Module):
         for i in (1, 2, 3):
             setattr(self, f"spade_b128_{i}", SpadeResBlock(ch, ch, resolution=128, feat_multiplier=2))
         res = self.block_resolutions[-1]
+        # V18's texture block builds (and discards) the mask heads, Full's does not
         self.texture_b256 = SynthesisBlockFull(
             self.channels(res // 2), self.channels(res), resolution=res, is_last=True,
-            is_style=False, **common)
+            is_style=variant == "v18", **common)
         ngf = 64
         self.spade_encoder = nn.Sequential(
             Conv2dLayer(3, ngf, 7, activation="relu"),
@@ -237,9 +258,12 @@ class SynthesisNetworkFull(nn.Module):
             if res == self.block_resolutions[-2]:
                 x_128, img_128 = x, img
 
-        parsing_idx = aux.detach().argmax(dim=1, keepdim=True)
-        upper_mask = (parsing_idx == 1).float()
-        lower_mask = (parsing_idx == 2).float()
+        if self.variant == "v18":  # the predicted sigmoid masks, detached
+            upper_mask, lower_mask = aux[0].detach(), aux[1].detach()
+        else:  # parsing argmax -> upper / lower masks (not differentiated)
+            parsing_idx = aux.detach().argmax(dim=1, keepdim=True)
+            upper_mask = (parsing_idx == 1).float()
+            lower_mask = (parsing_idx == 2).float()
         N = denorm_upper_input.shape[0]
         spade_both = self.get_spade_feat(
             torch.cat([upper_mask, lower_mask]),
@@ -252,4 +276,6 @@ class SynthesisNetworkFull(nn.Module):
         h = self.spade_b128_3(h, spade_feat)
         _, finetune_img, _ = self.texture_b256(h, img_128, block_ws[-1], pose_feat, cat_feat,
                                                noise_mode, generator)
+        if self.variant == "v18":
+            return img, finetune_img, (upper_mask, lower_mask)
         return img, finetune_img, aux

@@ -3,13 +3,16 @@
 Every hand-written kernel of the port is declared here, so that
 `build_kernels()` builds all of them and `KERNELS` lists all of them:
 
-* `norm_warp`  csrc/norm_warp.cu   (wrapper: ops/warp_kernels.py)
-* `composite`  csrc/composite.cu   (wrapper: ops/warp_kernels.py)
-* `up2`        csrc/upfirdn2x.cu   (wrapper: ops/upfirdn_kernels.py)
-* `down2`      csrc/upfirdn2x.cu   (wrapper: ops/upfirdn_kernels.py)
+* `norm_warp`    csrc/norm_warp.cu     (wrapper: ops/warp_kernels.py)
+* `composite`    csrc/composite.cu     (wrapper: ops/warp_kernels.py)
+* `denorm_warp`  csrc/denorm_warp.cu   (wrapper: ops/warp_kernels.py)
+* `up2`          csrc/upfirdn2x.cu     (wrapper: ops/upfirdn_kernels.py)
+* `down2`        csrc/upfirdn2x.cu     (wrapper: ops/upfirdn_kernels.py)
 
 Kernels are built with nvcc into `pasta_gan_tpu_torch/build/` at first use
-(one shared library per source, plain C interface, loaded with ctypes); each
+(one shared library per source, plain C interface, loaded with ctypes; the
+library's file name hashes the source, every header under csrc/ and the
+flags, so an edited header rebuilds its includers); each
 C entry point launches on the stream it is given and returns
 `cudaGetLastError()`.  `CudaKernel.launch` raises on a nonzero return and
 adds one to `launches` for every launch, and nowhere else.
@@ -18,6 +21,7 @@ adds one to `launches` for every launch, and nowhere else.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -53,8 +57,11 @@ class CudaKernel:
         return os.path.join(CSRC_DIR, self.source)
 
     def library_path(self) -> str:
-        with open(self.source_path, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in [self.source_path] + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
+            with open(path, "rb") as f:
+                h.update(f.read())
+        digest = h.hexdigest()[:12]
         return os.path.join(BUILD_DIR, f"{os.path.splitext(self.source)[0]}-{digest}.so")
 
     def _function(self):
@@ -77,16 +84,21 @@ class CudaKernel:
 
 NORM_WARP = CudaKernel(
     "norm_warp", "norm_warp.cu", "pasta_norm_warp_f32",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 )
 COMPOSITE = CudaKernel(
     "composite", "composite.cu", "pasta_composite_f32",
     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U, _U, _I, _F, _P],
 )
+# (src, minv, valid, out, B, N, C, Hs, Ws, H, W, replicate, stream)
+DENORM_WARP = CudaKernel(
+    "denorm_warp", "denorm_warp.cu", "pasta_denorm_warp_f32",
+    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+)
 # (x, y, bf16, planes, H, W, extend | pad, gain, stream)
 UP2 = CudaKernel("up2", "upfirdn2x.cu", "pasta_up2", [_P, _P, _I, _L, _I, _I, _I, _F, _P])
 DOWN2 = CudaKernel("down2", "upfirdn2x.cu", "pasta_down2", [_P, _P, _I, _L, _I, _I, _I, _F, _P])
-KERNELS: Dict[str, CudaKernel] = {k.name: k for k in (NORM_WARP, COMPOSITE, UP2, DOWN2)}
+KERNELS: Dict[str, CudaKernel] = {k.name: k for k in (NORM_WARP, COMPOSITE, DENORM_WARP, UP2, DOWN2)}
 
 
 def reset_launch_counts() -> None:

@@ -1,20 +1,26 @@
-"""The two routing kernels of the try-on path and their plain PyTorch versions.
+"""The three routing kernels of the try-on paths and their plain PyTorch versions.
 
 * `norm_warp` (csrc/norm_warp.cu) replaces `pasta_gan_tpu/ops/pallas_warp.py:_norm_kernel`:
-  full frames -> planar per-part patches, bilinear, replicate border.
+  full frames -> planar per-part patches, bilinear, replicate border, 4 or 8
+  channels.
 * `composite` (csrc/composite.cu) replaces `pallas_warp.py:_composite_kernel`:
   patches -> frame (constant-zero border), mask >= 254.5/255, 5x5 erosion of
   flagged parts, later-parts-overwrite composite into group planes, hand masks.
+* `denorm_warp` (csrc/denorm_warp.cu) replaces `pallas_warp.py:_warp_kernel`:
+  patches -> one full-frame plane per part, constant or replicate border.  It
+  is the first pass of the separate-pass denorm route, `composite_reference`
+  with `warp=denorm_warp`, which the routes take with `denorm="separate"`.
 
 Each wrapper runs its plain version for tensors on the CPU, and for CUDA
 tensors launches its kernel or raises; there is no fallback.  The plain
-versions (`norm_warp_reference`, `composite_reference`) are the same math as
-the JAX package's CPU paths (`_warp_parts_gather`, and the separate-pass
-composite of `route_patches_single`); the CPU tests hold them against JAX and
-`chip_smoke.py` holds the kernels against them on the card.
+versions (`norm_warp_reference`, `composite_reference`,
+`denorm_warp_reference`) are the same math as the JAX package's CPU paths
+(`_warp_parts_gather`, the separate-pass composite of
+`route_patches_single`, `warp_parts_pallas`); the CPU tests hold them against
+JAX and `chip_smoke.py` holds the kernels against them on the card.
 
 The kernels are declared, built and counted in `ops/cuda_kernels.py`
-(`KERNELS["norm_warp"]`, `KERNELS["composite"]`).
+(`KERNELS["norm_warp"]`, `KERNELS["composite"]`, `KERNELS["denorm_warp"]`).
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .cuda_kernels import COMPOSITE, NORM_WARP, check_tensor, stream_of
+from .cuda_kernels import COMPOSITE, DENORM_WARP, NORM_WARP, check_tensor, stream_of
 from .warp_math import warp_coords
 
 # cv2's `== 255` on uint8 masks, as a float32 threshold.
@@ -68,10 +74,10 @@ def norm_warp_reference(src0, src1, minv, valid, n0: int, out_hw) -> torch.Tenso
 def norm_warp(src0, src1, minv, valid, n0: int, out_hw) -> torch.Tensor:
     """NORM warps of B samples x N parts in one launch.
 
-    src0, src1: [B, H, W, 4] float32 NHWC frames (parts p < n0 sample src0,
-    the rest src1); minv: [B, N, 3, 3] dst->src homographies (inverses of the
-    frame->patch M); valid: [B, N] float32 gate.  Returns planar
-    [B, N, 4, h, w] float32."""
+    src0, src1: [B, H, W, C] float32 NHWC frames, C = 4 or 8 (parts p < n0
+    sample src0, the rest src1); minv: [B, N, 3, 3] dst->src homographies
+    (inverses of the frame->patch M); valid: [B, N] float32 gate.  Returns
+    planar [B, N, C, h, w] float32."""
     if src0.device.type == "cpu":
         return norm_warp_reference(src0, src1, minv, valid, n0, out_hw)
     if src0.device.type != "cuda":
@@ -80,52 +86,101 @@ def norm_warp(src0, src1, minv, valid, n0: int, out_hw) -> torch.Tensor:
     N = minv.shape[1]
     h, w = out_hw
     dev = src0.device
-    if C != 4:
-        raise ValueError(f"norm_warp needs 4-channel frames, got {C}")
-    check_tensor(src0, "src0", (B, H, W, 4), dev)
-    check_tensor(src1, "src1", (B, H, W, 4), dev)
+    if C not in (4, 8):
+        raise ValueError(f"norm_warp needs 4- or 8-channel frames, got {C}")
+    _check_grid(B, N)
+    check_tensor(src0, "src0", (B, H, W, C), dev)
+    check_tensor(src1, "src1", (B, H, W, C), dev)
     check_tensor(minv, "minv", (B, N, 3, 3), dev)
     check_tensor(valid, "valid", (B, N), dev)
-    out = torch.empty((B, N, 4, h, w), dtype=torch.float32, device=dev)
+    out = torch.empty((B, N, C, h, w), dtype=torch.float32, device=dev)
     NORM_WARP.launch(
         src0.data_ptr(), src1.data_ptr(), minv.data_ptr(), valid.data_ptr(), out.data_ptr(),
-        B, N, n0, H, W, h, w, stream_of(dev),
+        B, N, n0, H, W, h, w, C, stream_of(dev),
+    )
+    return out
+
+
+def _check_grid(B: int, N: int) -> None:
+    """norm_warp and denorm_warp put one (sample, part) on each grid row."""
+    if B * N > 65535:
+        raise ValueError(f"{B} samples x {N} parts exceed the 65535 grid rows of one launch")
+
+
+# ------------------------------------------------------------------- denorm
+
+
+def denorm_warp_reference(srcs, minv, valid, out_hw, border: str = "constant") -> torch.Tensor:
+    """Plain version of `denorm_warp`: the bilinear gather of `_bilinear_core`,
+    times the validity gate.  With the constant border a coordinate outside
+    (-1, size), or not finite (the TPU kernel's squash), samples 0; with the
+    replicate border a non-finite coordinate gives NaN here, where the kernel
+    squashes it to 0."""
+    B, N, C, Hs, Ws = srcs.shape
+    H, W = out_hw
+    sx, sy = warp_coords(minv, out_hw)  # [B, N, H, W]
+    if border == "constant":
+        inside = (sx > -1.0) & (sx < Ws) & (sy > -1.0) & (sy < Hs)  # False for NaN
+        sx, sy = sx.clamp(-1.0, float(Ws)), sy.clamp(-1.0, float(Hs))
+        planes, off = F.pad(srcs, (1, 1, 1, 1)), 1  # indices into the zero-padded patch
+    elif border == "replicate":
+        inside = None
+        sx, sy = sx.clamp(0.0, Ws - 1.0), sy.clamp(0.0, Hs - 1.0)
+        planes, off = srcs, 0
+    else:
+        raise ValueError(f"border must be 'constant' or 'replicate', got {border!r}")
+    Hp, Wp = planes.shape[-2:]
+    x0 = torch.floor(sx)
+    y0 = torch.floor(sy)
+    fx = (sx - x0).reshape(B * N, 1, H * W)
+    fy = (sy - y0).reshape(B * N, 1, H * W)
+    xi = (x0.long() + off).clamp(0, Wp - 1).reshape(B * N, 1, H * W)
+    yi = (y0.long() + off).clamp(0, Hp - 1).reshape(B * N, 1, H * W)
+    xj = (xi + 1).clamp(max=Wp - 1)
+    yj = (yi + 1).clamp(max=Hp - 1)
+    flat = planes.reshape(B * N, C, Hp * Wp)
+
+    def tap(yy, xx):
+        return torch.gather(flat, 2, (yy * Wp + xx).expand(B * N, C, H * W))
+
+    top = tap(yi, xi) * (1 - fx) + tap(yi, xj) * fx
+    bot = tap(yj, xi) * (1 - fx) + tap(yj, xj) * fx
+    out = top * (1 - fy) + bot * fy
+    if inside is not None:
+        out = torch.where(inside.reshape(B * N, 1, H * W), out, torch.zeros_like(out))
+    return out.reshape(B, N, C, H, W) * valid[:, :, None, None, None]
+
+
+def denorm_warp(srcs, minv, valid, out_hw, border: str = "constant") -> torch.Tensor:
+    """DENORM warps of B samples x N parts in one launch.
+
+    srcs: [B, N, C, Hs, Ws] float32 planar patches; minv: [B, N, 3, 3]
+    frame->patch homographies (inverses of the patch->frame M); valid: [B, N]
+    float32 gate (an invalid part gives an all-zero plane); border:
+    "constant" (zero outside the patch) or "replicate" (the sample clamps to
+    the patch).  Returns planar [B, N, C, H, W] float32."""
+    if border not in ("constant", "replicate"):
+        raise ValueError(f"border must be 'constant' or 'replicate', got {border!r}")
+    if srcs.device.type == "cpu":
+        return denorm_warp_reference(srcs, minv, valid, out_hw, border)
+    if srcs.device.type != "cuda":
+        raise ValueError(f"denorm_warp runs on cpu or cuda tensors, got {srcs.device}")
+    B, N, C, Hs, Ws = srcs.shape
+    H, W = out_hw
+    dev = srcs.device
+    _check_grid(B, N)
+    check_tensor(srcs, "srcs", (B, N, C, Hs, Ws), dev)
+    check_tensor(minv, "minv", (B, N, 3, 3), dev)
+    check_tensor(valid, "valid", (B, N), dev)
+    out = torch.empty((B, N, C, H, W), dtype=torch.float32, device=dev)
+    DENORM_WARP.launch(
+        srcs.data_ptr(), minv.data_ptr(), valid.data_ptr(), out.data_ptr(),
+        B, N, C, Hs, Ws, H, W, int(border == "replicate"), stream_of(dev),
     )
     return out
 
 
 # ---------------------------------------------------------------- composite
-
-
-def denorm_warp_reference(srcs, minv, out_hw) -> torch.Tensor:
-    """Patches [B, N, C, Hs, Ws] -> frames [B, N, C, H, W]: the bilinear gather
-    of `_bilinear_core` with a constant-zero border (the JAX CPU path computes
-    the same samples as hat contractions)."""
-    B, N, C, Hs, Ws = srcs.shape
-    H, W = out_hw
-    sx, sy = warp_coords(minv, out_hw)  # [B, N, H, W]
-    outside = (sx <= -1.0) | (sx >= Ws) | (sy <= -1.0) | (sy >= Hs)
-    sx = sx.clamp(-1.0, float(Ws))
-    sy = sy.clamp(-1.0, float(Hs))
-    x0 = torch.floor(sx)
-    y0 = torch.floor(sy)
-    fx = (sx - x0).reshape(B * N, 1, H * W)
-    fy = (sy - y0).reshape(B * N, 1, H * W)
-    # indices into the zero-padded patch [Hs + 2, Ws + 2]
-    xi = (x0.long() + 1).clamp(0, Ws + 1).reshape(B * N, 1, H * W)
-    yi = (y0.long() + 1).clamp(0, Hs + 1).reshape(B * N, 1, H * W)
-    xj = (xi + 1).clamp(max=Ws + 1)
-    yj = (yi + 1).clamp(max=Hs + 1)
-    padded = F.pad(srcs, (1, 1, 1, 1)).reshape(B * N, C, (Hs + 2) * (Ws + 2))
-
-    def tap(yy, xx):
-        return torch.gather(padded, 2, (yy * (Ws + 2) + xx).expand(B * N, C, H * W))
-
-    top = tap(yi, xi) * (1 - fx) + tap(yi, xj) * fx
-    bot = tap(yj, xi) * (1 - fx) + tap(yj, xj) * fx
-    out = top * (1 - fy) + bot * fy
-    out = torch.where(outside.reshape(B * N, 1, H * W), torch.zeros_like(out), out)
-    return out.reshape(B, N, C, H, W)
 
 
 def erode_binary(mask: torch.Tensor, size: int = 5) -> torch.Tensor:
@@ -137,13 +192,16 @@ def erode_binary(mask: torch.Tensor, size: int = 5) -> torch.Tensor:
     return m.reshape(shape)
 
 
-def composite_reference(srcs, minv, valid, out_hw, groups, erode_parts, hand_parts):
-    """Plain version of `composite`: the separate-pass pipeline of
-    `pasta_gan_tpu/data/warp.py:route_patches_single` (warp -> threshold ->
-    erode_binary -> select chain), op for op."""
+def composite_reference(srcs, minv, valid, out_hw, groups, erode_parts, hand_parts, warp=denorm_warp_reference):
+    """The separate-pass pipeline of `pasta_gan_tpu/data/warp.py:route_patches_single`
+    (gated warp -> threshold -> erode_binary -> select chain), op for op.
+
+    With the plain warp (the default) it is the plain version of `composite`;
+    with `warp=denorm_warp` it is the separate-pass denorm route, whose warp
+    runs the `denorm_warp` kernel on CUDA tensors."""
     B, N = srcs.shape[:2]
     H, W = out_hw
-    dn = denorm_warp_reference(srcs, minv, out_hw) * valid[:, :, None, None, None]
+    dn = warp(srcs, minv, valid, out_hw)
     thresh = torch.tensor(MASK_SATURATION_THRESHOLD, dtype=torch.float32, device=srcs.device)
     sat = (dn[:, :, 3] >= thresh).to(srcs.dtype)  # [B, N, H, W]
     ero = [p for p in range(N) if erode_parts[p]]

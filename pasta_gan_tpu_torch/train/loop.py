@@ -132,7 +132,8 @@ def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg
     stats_file.close()
 
     snap = os.path.join(run_dir, f"network-snapshot-{int(cur_nimg // 1000):06d}.pt")
-    save_snapshot(snap, state.G_ema.state_dict(), state.w_avg, {"model": state.G_ema.config})
+    save_snapshot(snap, state.G_ema.state_dict(), state.w_avg,
+                  {"model": state.G_ema.config, "generator": state.G_ema.variant})
     save_train_state(os.path.join(run_dir, "train-state-latest.pt"), state, dataclasses.asdict(config))
     if verbose:
         print(f"saved {snap} and train-state-latest.pt")

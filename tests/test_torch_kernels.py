@@ -1,6 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions: the two
-routing kernels (norm_warp, composite) and the two FIR resampling kernels
-(up2, down2).
+"""The port's CUDA kernels against their plain PyTorch versions: the three
+routing kernels (norm_warp at 4 and 8 channels, composite, denorm_warp with
+both borders) and the two FIR resampling kernels (up2, down2).
 
 This file imports no JAX, so it also runs on a machine with an NVIDIA GPU
 and no JAX:
@@ -13,7 +13,10 @@ tests/test_torch_routing.py, which holds the plain versions against JAX.
 
 Routing tolerance atol 5e-5.  The composite inputs are seeds whose mask values keep
 farther than 1e-5 from 254.5/255 (tests/test_torch_routing.py asserts it),
-so every pixel is compared.
+so every pixel is compared.  denorm_warp and norm_warp repeat their plain
+versions' rounded operations in order, so on the card they agree to the bit
+(chip_smoke.py prints the error); the tests hold them to the routing
+tolerance.
 
 FIR tolerances: fp32 atol 1e-6 (the kernels repeat the plain version's
 rounded products and sums in its order, so they agree to the bit on the
@@ -68,9 +71,9 @@ def _homographies(rng, n, frame, patch, to_patch=True):
     return np.stack(Ms).astype(np.float32)
 
 
-def _norm_inputs(seed, B=2, N=5, n0=3, frame=64, patch=16):
+def _norm_inputs(seed, B=2, N=5, n0=3, frame=64, patch=16, C=4):
     rng = np.random.default_rng(seed)
-    src = rng.uniform(0, 1, (2, B, frame, frame, 4)).astype(np.float32)
+    src = rng.uniform(0, 1, (2, B, frame, frame, C)).astype(np.float32)
     M = np.stack([_homographies(rng, N, frame, patch) for _ in range(B)])
     valid = np.ones((B, N), np.float32)
     valid[0, 1] = 0.0
@@ -87,8 +90,29 @@ def _composite_inputs(seed, B=2, N=5, frame=64, patch=32):
     return srcs, M, valid, (frame, frame)
 
 
-def _norm_args(seed, device):
-    src, M, valid, n0, hw = _norm_inputs(seed)
+def _denorm_inputs(seed, B=2, N=4, C=4, frame=64, patch=16):
+    """Patches [B, N, C, patch, patch] and patch->frame homographies: random
+    quads, plus in sample 0 a part whose quad lies far off the frame and a
+    degenerate one (a perspective whose horizon crosses the frame, so the
+    denominator changes sign there); part 2 of sample 1 is invalid."""
+    rng = np.random.default_rng(seed)
+    srcs = rng.uniform(0, 1, (B, N, C, patch, patch)).astype(np.float32)
+    M = np.stack([_homographies(rng, N, frame, patch, to_patch=False) for _ in range(B)])
+    M[0, 1, :2, 2] += 10.0 * frame  # far off
+    M[0, 3] = M[0, 3] @ np.array([[1, 0, 0], [0, 1, 0], [0.05, -0.12, 1]], np.float32)  # degenerate
+    valid = np.ones((B, N), np.float32)
+    valid[1, 2] = 0.0
+    return srcs, M.astype(np.float32), valid, (frame, frame)
+
+
+def _denorm_args(seed, device):
+    srcs, M, valid, hw = _denorm_inputs(seed)
+    return (torch.from_numpy(srcs).to(device), inv3x3(torch.from_numpy(M)).to(device).contiguous(),
+            torch.from_numpy(valid).to(device), hw)
+
+
+def _norm_args(seed, device, C=4):
+    src, M, valid, n0, hw = _norm_inputs(seed, C=C)
     return (torch.from_numpy(src[0]).to(device), torch.from_numpy(src[1]).to(device),
             inv3x3(torch.from_numpy(M)).to(device).contiguous(), torch.from_numpy(valid).to(device), n0, hw)
 
@@ -100,9 +124,9 @@ def _composite_args(seed, device, hw=None):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("seed", [0, 1])
-def test_norm_warp_kernel_matches_plain(cuda_device, seed):
-    args = _norm_args(seed, cuda_device)
+@pytest.mark.parametrize("seed,C", [(0, 4), (1, 4), (0, 8)])
+def test_norm_warp_kernel_matches_plain(cuda_device, seed, C):
+    args = _norm_args(seed, cuda_device, C)
     before = ck.NORM_WARP.launches
     out = wk.norm_warp(*args)
     torch.cuda.synchronize()
@@ -125,12 +149,31 @@ def test_composite_kernel_matches_plain(cuda_device, seed, hw):
     np.testing.assert_allclose(h.cpu().numpy(), h_p.cpu().numpy(), atol=TOL)
 
 
-@pytest.mark.parametrize("kernel", ["norm_warp", "composite"])
+@pytest.mark.cuda
+@pytest.mark.parametrize("border", ["constant", "replicate"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_denorm_warp_kernel_matches_plain(cuda_device, seed, border):
+    args = _denorm_args(seed, cuda_device)
+    before = ck.DENORM_WARP.launches
+    out = wk.denorm_warp(*args, border)
+    torch.cuda.synchronize()
+    assert ck.DENORM_WARP.launches == before + 1
+    ref = wk.denorm_warp_reference(*args, border)
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), atol=TOL)
+    assert not out[1, 2].any(), "an invalid part must give an all-zero plane"
+
+
+@pytest.mark.parametrize("kernel", ["norm_warp", "composite", "denorm_warp"])
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch(kernel):
     before = {k.name: k.launches for k in ck.KERNELS.values()}
     if kernel == "norm_warp":
-        args = _norm_args(0, "cpu")
+        args = _norm_args(0, "cpu", C=8)
         torch.testing.assert_close(wk.norm_warp(*args), wk.norm_warp_reference(*args), rtol=0, atol=0)
+    elif kernel == "denorm_warp":
+        args = _denorm_args(0, "cpu")
+        for border in ("constant", "replicate"):
+            torch.testing.assert_close(wk.denorm_warp(*args, border), wk.denorm_warp_reference(*args, border),
+                                       rtol=0, atol=0)
     else:
         args = _composite_args(0, "cpu")
         for a, b in zip(wk.composite(*args), wk.composite_reference(*args)):
@@ -148,6 +191,10 @@ def test_kernel_wrappers_reject_bad_cuda_inputs_without_a_card():
     with pytest.raises(ValueError):
         wk.composite(srcs, torch.zeros((1, 2, 3, 3), device="meta"), torch.zeros((1, 2), device="meta"),
                      (16, 16), (0, 1), (True, False), (1,))
+    with pytest.raises(ValueError):
+        wk.denorm_warp(srcs, torch.zeros((1, 2, 3, 3), device="meta"), torch.zeros((1, 2), device="meta"), (16, 16))
+    with pytest.raises(ValueError):  # an unknown border, on any device
+        wk.denorm_warp(*_denorm_args(0, "cpu"), border="reflect")
 
 
 @pytest.mark.cuda
@@ -163,6 +210,15 @@ def test_kernel_wrappers_check_cuda_inputs(cuda_device):
         wk.composite(srcs, cminv, cvalid, frame_hw, groups, erode, (3, 1))  # hand parts out of order
     with pytest.raises(ValueError):
         wk.composite(srcs.half(), cminv, cvalid, frame_hw, groups, erode, hands)
+    with pytest.raises(ValueError):  # 6 channels: the norm kernel takes 4 or 8
+        wk.norm_warp(src0[..., :2].repeat(1, 1, 1, 3).contiguous(), src1[..., :2].repeat(1, 1, 1, 3).contiguous(),
+                     minv, valid, n0, hw)
+    dsrcs, dminv, dvalid, dhw = _denorm_args(0, cuda_device)
+    for bad in (dsrcs.double(), dsrcs.transpose(3, 4)):
+        with pytest.raises(ValueError):
+            wk.denorm_warp(bad, dminv, dvalid, dhw)
+    with pytest.raises(ValueError):
+        wk.denorm_warp(dsrcs, dminv.cpu(), dvalid, dhw)
 
 
 # ------------------------------------------------------------------ up2 / down2
@@ -262,6 +318,18 @@ def test_fir_wrappers_check_cuda_inputs(cuda_device):
 
 
 def test_registry_holds_every_kernel_once():
-    assert sorted(ck.KERNELS) == ["composite", "down2", "norm_warp", "up2"]
+    assert sorted(ck.KERNELS) == ["composite", "denorm_warp", "down2", "norm_warp", "up2"]
     for k in ck.KERNELS.values():
         assert os.path.exists(k.source_path), k.source
+
+
+def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
+    """Editing a header under csrc/ renames the library of every source, so a
+    stale build is never loaded."""
+    for name in ("composite.cu", "warp_math.cuh"):
+        (tmp_path / name).write_bytes(open(os.path.join(ck.CSRC_DIR, name), "rb").read())
+    monkeypatch.setattr(ck, "CSRC_DIR", str(tmp_path))
+    before = ck.COMPOSITE.library_path()
+    with open(tmp_path / "warp_math.cuh", "a") as f:
+        f.write("// edited\n")
+    assert ck.COMPOSITE.library_path() != before

@@ -1,11 +1,12 @@
-"""Port routing (geometry, warps, the two kernel modules' plain versions) vs
-the JAX package on the CPU.  The CUDA kernels themselves are held against
+"""Port routing (geometry, warps, the three routing kernels' plain versions)
+vs the JAX package on the CPU.  The CUDA kernels themselves are held against
 these plain versions on a card in tests/test_torch_kernels.py.
 
 Tolerances: `part_transforms` matrices rtol 1e-5 / atol 1e-4; norm warp
-atol 5e-5; composite planes and hand masks atol 5e-5 on every pixel whose
-oracle mask value lies farther than 1e-5 from 254.5/255 (dilated by the 5x5
-erosion for eroded parts).  The count of excluded pixels is asserted to be 0
+(4 and 8 channels) and denorm warp (both borders) atol 5e-5; composite
+planes and hand masks atol 5e-5 on every pixel whose oracle mask value lies
+farther than 1e-5 from 254.5/255 (dilated by the 5x5 erosion for eroded
+parts).  The count of excluded pixels is asserted to be 0
 on the seeds used, so every pixel is compared.
 """
 
@@ -21,13 +22,17 @@ from pasta_gan_tpu.data import warp as jw
 from pasta_gan_tpu.data.dataset import SyntheticUvitonDataset
 from pasta_gan_tpu.ops.matmul_warp import inv3x3 as jinv3x3
 from pasta_gan_tpu.ops.matmul_warp import warp_perspective_matmul
-from pasta_gan_tpu.ops.pallas_warp import warp_frame_to_parts_pallas_batched, warp_parts_composite_pallas
+from pasta_gan_tpu.ops.pallas_warp import (
+    warp_frame_to_parts_pallas_batched,
+    warp_parts_composite_pallas,
+    warp_parts_pallas,
+)
 from pasta_gan_tpu_torch.data import geometry as tg
 from pasta_gan_tpu_torch.data import warp as tw
 from pasta_gan_tpu_torch.ops import warp_kernels as wk
 from pasta_gan_tpu_torch.ops.warp_math import inv3x3, warp_coords
 
-from test_torch_kernels import ERODE, GROUPS, HANDS, _composite_inputs, _homographies, _norm_inputs
+from test_torch_kernels import ERODE, GROUPS, HANDS, _composite_inputs, _denorm_inputs, _homographies, _norm_inputs
 
 TOL = 5e-5
 NEAR = 1e-5
@@ -120,6 +125,48 @@ def test_norm_warp_reference_matches_jax_gather_and_pallas(seed):
         )
         np.testing.assert_allclose(ours[:, parts].numpy(), np.asarray(ref) * valid[:, parts, None, None, None],
                                    atol=TOL)
+
+
+def test_norm_warp_reference_8_channels_matches_jax_warp_perspective():
+    """The released-256 route's 8-channel frames (image, mask, stickman, pad)
+    against the JAX package's vmapped gather, `route_patches_v19_single`'s
+    norm warp."""
+    src, M, valid, n0, hw = _norm_inputs(2, C=8)
+    B, N = M.shape[:2]
+    ours = wk.norm_warp(torch.from_numpy(src[0]), torch.from_numpy(src[1]), inv3x3(torch.from_numpy(M)),
+                        torch.from_numpy(valid), n0, hw)
+    assert tuple(ours.shape) == (B, N, 8) + hw
+    warp = jax.vmap(jw.warp_perspective, in_axes=(0, 0, None, None))
+    for b in range(B):
+        frames = np.stack([src[0 if p < n0 else 1, b] for p in range(N)])
+        ref = np.asarray(warp(jnp.asarray(frames), jnp.asarray(M[b]), hw, "replicate")) * valid[b, :, None, None, None]
+        np.testing.assert_allclose(ours[b].numpy(), ref.transpose(0, 3, 1, 2), atol=TOL)
+
+
+# ---------------------------------------------------- denorm_warp (kernel 3)
+
+
+@pytest.mark.parametrize("border", ["constant", "replicate"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_denorm_warp_reference_matches_jax_pallas(seed, border):
+    """N = 4 parts of 4-channel 16x16 patches into 64x64 frames, one invalid
+    part, a far-off and a degenerate matrix, against the TPU kernel in
+    interpret mode (planar in and out)."""
+    srcs, M, valid, hw = _denorm_inputs(seed)
+    B, N = M.shape[:2]
+    ours = wk.denorm_warp(torch.from_numpy(srcs), inv3x3(torch.from_numpy(M)), torch.from_numpy(valid), hw,
+                          border)  # CPU tensors: the plain version
+    ref = warp_parts_pallas(
+        jnp.asarray(srcs.reshape((B * N,) + srcs.shape[2:])), jnp.asarray(M.reshape(B * N, 3, 3)), hw, border,
+        valid=jnp.asarray(valid.reshape(-1) > 0), rows_per_tile=8, interpret=True, planar=True, planar_in=True,
+    )
+    ref = np.asarray(ref).reshape(ours.shape)
+    assert np.isfinite(ref).all()
+    np.testing.assert_allclose(ours.numpy(), ref, atol=TOL)
+    assert not ours[1, 2].any()  # the invalid part
+    if border == "constant":
+        assert not ours[0, 1].any()  # the far-off part
+    assert ours[0, 3].abs().sum() > 0  # the degenerate part reaches the frame
 
 
 # ------------------------------------------------------- composite (kernel 2)

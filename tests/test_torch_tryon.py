@@ -210,10 +210,10 @@ def test_port_imports_no_jax_cv2_pil_or_jax_package():
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) > 20
     rel = {os.path.relpath(f, REPO) for f in files}
-    training = {f"pasta_gan_tpu_torch/{m}.py" for m in (
+    later_slices = {f"pasta_gan_tpu_torch/{m}.py" for m in (
         "ops/cuda_kernels", "ops/upfirdn_kernels", "nn/discriminator", "runtime/config", "train/losses",
-        "train/vgg", "train/state", "train/step", "train/loop", "cli/train")}
-    assert training <= rel, sorted(training - rel)
+        "train/vgg", "train/state", "train/step", "train/loop", "cli/train", "models/generator_v18")}
+    assert later_slices <= rel, sorted(later_slices - rel)
     bad = [(os.path.relpath(f, REPO), mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in FORBIDDEN]
     assert not bad, bad
@@ -226,6 +226,10 @@ def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
         tds.prepare_tryon_batch(person, garment)
     with pytest.raises(RuntimeError, match="cuda"):
         tds.tryon_warp_inputs(person, garment)
+    with pytest.raises(RuntimeError, match="cuda"):
+        tds.prepare_tryon_batch_v18(person, garment, denorm="separate")
+    with pytest.raises(RuntimeError, match="cuda"):
+        tds.tryon_warp_inputs_v18(person, garment)
     with pytest.raises(RuntimeError, match="cuda"):
         cli.main(["--network", str(tmp_path / "missing.pt"), "--synthetic", "1", "--outdir", str(tmp_path)])
     gen = GeneratorFull(**THIN)
