@@ -11,9 +11,11 @@ Phases, each fatal on failure:
    denorm_warp, constant border, on the released-256 route, plus a smaller
    replicate-border denorm_warp case) and the FIR kernels at the training
    path's largest shapes (up2 pre-FIR [16,128,128,128], down2
-   [32,64,256,256]), each against its plain PyTorch version on the card
-   (fp32 with TF32 off, and bf16), with times from CUDA events (L2 flushed
-   before each launch), the byte/operation bound and a one-call library
+   [32,64,256,256]) and up2 at the serving path's most launched up-conv
+   shapes and D's backward, each against its plain PyTorch version on the
+   card (fp32 with TF32 off, and bf16), with times from CUDA events (L2
+   flushed before each launch; mean and median of 20), the byte/operation
+   bound and a one-call library
    yardstick (`grid_sample`, depthwise `conv_transpose2d` / `conv2d`); the
    FIR kernels also check their adjoint identity.
 3. Full serving phase: a full-width GeneratorFull (channel_base 16384,
@@ -89,13 +91,13 @@ def card_tag():
 
 
 def cuda_time_ms(torch, fn, iters=20, warmup=3):
-    """Mean device time of fn() over `iters` launches, CUDA events around each
-    launch; a 256 MB write before each one evicts the 50 MB L2, as the main
-    path finds it cold."""
+    """(mean, median) device ms of fn() over `iters` launches, CUDA events
+    around each launch; a 256 MB write before each one evicts the 50 MB L2,
+    as the main path finds it cold."""
     scratch = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device="cuda")
     for _ in range(warmup):
         fn()
-    total = 0.0
+    times = []
     for _ in range(iters):
         scratch.zero_()
         s = torch.cuda.Event(enable_timing=True)
@@ -104,8 +106,18 @@ def cuda_time_ms(torch, fn, iters=20, warmup=3):
         fn()
         e.record()
         torch.cuda.synchronize()
-        total += s.elapsed_time(e)
-    return total / iters
+        times.append(s.elapsed_time(e))
+    return sum(times) / iters, statistics.median(times)
+
+
+def kernel_times(torch, run, plain, library=None, plain_iters=20):
+    """The timing keys of a kernel's result: its mean and median ms, the plain
+    version's mean and, where one call computes the same function, that
+    call's mean and median."""
+    ms, ms_median = cuda_time_ms(torch, run)
+    lib, lib_median = cuda_time_ms(torch, library) if library is not None else (None, None)
+    return dict(ms=ms, ms_median=ms_median, plain_ms=cuda_time_ms(torch, plain, iters=plain_iters)[0],
+                library_ms=lib, library_median=lib_median)
 
 
 def nbytes(*ts):
@@ -265,9 +277,7 @@ def kernel_phase(torch, wk, tag):
     byts = src_bytes + nbytes(r["minv_norm"], r["valid_norm"], out_k)
     ops = B * N * h * w * 52  # ~12 flops of coordinates + 4 channels x 9 of blend + gate
     results["norm_warp"] = dict(
-        err=err, ms=cuda_time_ms(torch, lambda: wk.norm_warp(*args)),
-        plain_ms=cuda_time_ms(torch, lambda: wk.norm_warp_reference(*args)),
-        library_ms=cuda_time_ms(torch, library),
+        err=err, **kernel_times(torch, lambda: wk.norm_warp(*args), lambda: wk.norm_warp_reference(*args), library),
         bytes=byts, ops=ops,
         extra=(f"source sectors read {src_bytes / 1e6:.2f} of {nbytes(r['src_u'], r['src_l']) / 1e6:.2f} MB; "
                f"grid_sample max |diff| vs plain {lib_err:.3g}"),
@@ -298,9 +308,8 @@ def kernel_phase(torch, wk, tag):
                   >= wk.MASK_SATURATION_THRESHOLD).sum())
     ops = n_valid * Hf * Wf * 21 + n_ero * Hf * Wf * 8 + sat_px * 27
     results["composite"] = dict(
-        err=err, ms=cuda_time_ms(torch, lambda: wk.composite(*cargs)),
-        plain_ms=cuda_time_ms(torch, lambda: wk.composite_reference(*cargs)),
-        library_ms=None, bytes=byts, ops=ops,
+        err=err, **kernel_times(torch, lambda: wk.composite(*cargs), lambda: wk.composite_reference(*cargs)),
+        bytes=byts, ops=ops,
         extra=(f"patch sectors read {patch_bytes / 1e6:.2f} of {nbytes(out_p) / 1e6:.2f} MB; "
                f"{n_excl} near-threshold pixels not compared"),
     )
@@ -333,8 +342,8 @@ def v18_kernel_phase(torch, wk, tag):
     assert err <= TOL, f"norm_warp (C = 8) disagrees with its plain version: {err}"
     _, N, C, h, w = out_k.shape
     src_bytes = norm_source_bytes(torch, r)
-    res = dict(err=err, ms=cuda_time_ms(torch, lambda: wk.norm_warp(*args)),
-               plain_ms=cuda_time_ms(torch, lambda: wk.norm_warp_reference(*args), iters=5), library_ms=None,
+    res = dict(err=err, **kernel_times(torch, lambda: wk.norm_warp(*args), lambda: wk.norm_warp_reference(*args),
+                                       plain_iters=5),
                bytes=src_bytes + nbytes(r["minv_norm"], r["valid_norm"], out_k), ops=B * N * h * w * (12 + C * 10),
                extra=(f"source sectors read {src_bytes / 1e6:.2f} of {nbytes(r['src_u'], r['src_l']) / 1e6:.2f} MB; "
                       "the released-256 route's 8-channel frames"))
@@ -365,9 +374,9 @@ def v18_kernel_phase(torch, wk, tag):
     # ~12 flops of coordinates per pixel of a valid part, ~10 per channel where it samples
     ops = int(valid.sum()) * H * W * 12 + inside * C * 10
     del dn_p
-    res = dict(err=err, ms=cuda_time_ms(torch, lambda: wk.denorm_warp(*dargs)),
-               plain_ms=cuda_time_ms(torch, lambda: wk.denorm_warp_reference(*dargs), iters=5),
-               library_ms=cuda_time_ms(torch, library), bytes=patch_bytes + nbytes(minv, valid, dn_k), ops=ops,
+    res = dict(err=err, **kernel_times(torch, lambda: wk.denorm_warp(*dargs),
+                                       lambda: wk.denorm_warp_reference(*dargs), library, plain_iters=5),
+               bytes=patch_bytes + nbytes(minv, valid, dn_k), ops=ops,
                extra=(f"patch sectors read {patch_bytes / 1e6:.2f} of {nbytes(srcs) / 1e6:.2f} MB, "
                       f"{nbytes(dn_k) / 1e6:.1f} MB written; grid_sample max |diff| vs plain {lib_err:.3g}"))
     report_kernel(f"denorm_warp(constant, {list(srcs.shape)} -> {list(dn_k.shape)})", res, tag)
@@ -380,9 +389,9 @@ def v18_kernel_phase(torch, wk, tag):
     torch.cuda.synchronize()
     rerr = float((rk - rp).abs().max())
     assert rerr <= TOL, f"denorm_warp (replicate) disagrees with its plain version: {rerr}"
-    rres = dict(err=rerr, ms=cuda_time_ms(torch, lambda: wk.denorm_warp(*rargs, "replicate")),
-                plain_ms=cuda_time_ms(torch, lambda: wk.denorm_warp_reference(*rargs, "replicate"), iters=5),
-                library_ms=None, bytes=nbytes(rargs[0], rargs[1], rargs[2], rk), ops=rk.numel() * 10 + 12 * H * W * 20,
+    rres = dict(err=rerr, **kernel_times(torch, lambda: wk.denorm_warp(*rargs, "replicate"),
+                                         lambda: wk.denorm_warp_reference(*rargs, "replicate"), plain_iters=5),
+                bytes=nbytes(rargs[0], rargs[1], rargs[2], rk), ops=rk.numel() * 10 + 12 * H * W * 20,
                 extra="every pixel samples the clamped patch; bound counts the whole patches")
     report_kernel(f"denorm_warp(replicate, {list(rargs[0].shape)} -> {list(rk.shape)})", rres, tag)
     return {"denorm_warp": res}
@@ -393,19 +402,30 @@ def report_kernel(label, res, tag):
     the larger) to `res` and print the kernel's line."""
     res["bound_ms"] = max(res["bytes"] / PEAK_BYTES_PER_S, res["ops"] / PEAK_FP32_FLOPS) * 1e3
     res["bound_by"] = "bytes" if res["bytes"] / PEAK_BYTES_PER_S >= res["ops"] / PEAK_FP32_FLOPS else "operations"
-    lib = "null" if res["library_ms"] is None else f"{res['library_ms']:.4f}"
-    print(f"kernel {label}: max_abs_err={res['err']:.3g} kernel_ms={res['ms']:.4f} "
+    lib = "null" if res["library_ms"] is None else f"{res['library_ms']:.4f} (median {res['library_median']:.4f})"
+    print(f"kernel {label}: max_abs_err={res['err']:.3g} kernel_ms={res['ms']:.4f} (median {res['ms_median']:.4f}) "
           f"plain_ms={res['plain_ms']:.4f} bound_ms={res['bound_ms']:.4f} ({res['bound_by']}) "
           f"library_ms={lib}; {res['extra']} [{tag}]", flush=True)
 
 
+# the main path's case of each FIR kernel, the one the `kernels` line reports
+FIR_MAIN = {("up2", 1, "bfloat16", (16, 128, 128, 128)): "up2", ("down2", 1, "bfloat16", (32, 64, 256, 256)): "down2"}
+
+
 def fir_kernel_phase(torch, tag):
     """up2 (extend 0 and 1) at the pre-FIR shape [16,128,128,128] and down2
-    (pad 1 and 0) at the D skip's [32,64,256,256], fp32 and bf16: the kernel
-    against its plain version on the card, the adjoint identity, times, the
-    byte bound and the depthwise cuDNN call that computes the same function.
-    Returns the results of the main path's cases (up2 extend 1 bf16, down2
-    pad 1 bf16) under "up2" and "down2"."""
+    (pad 1 and 0) at the D skip's [32,64,256,256], fp32 and bf16, then up2 in
+    bf16 at every other up-conv shape of the serving path (extend 1,
+    [16,256,64,64] down to [16,512,4,4], whose 10-wide rows take the
+    short-row kernel) and at D's backward through its skip (extend 0,
+    [32,64,128,128]): the kernel against its plain version on the card, the
+    adjoint identity, times, the byte bound and the depthwise cuDNN call
+    that computes the same function.  Each case is also timed through the C
+    entry point alone into a preallocated output (`entry`): for a kernel of
+    a few microseconds the wrapper's host path sits inside the CUDA events.
+    Returns the results of the main path's cases (FIR_MAIN) under "up2" and
+    "down2"."""
+    from pasta_gan_tpu_torch.ops import cuda_kernels as ck
     from pasta_gan_tpu_torch.ops import upfirdn_kernels as uk
 
     F = torch.nn.functional
@@ -416,6 +436,9 @@ def fir_kernel_phase(torch, tag):
     specs = [("up2", e, dt, (16, 128, 128, 128)) for e in (1, 0) for dt in (torch.bfloat16, torch.float32)]
     specs += [("down2", p, dt, (32, 64, 256 + 2 * (1 - p), 256 + 2 * (1 - p)))
               for p in (1, 0) for dt in (torch.bfloat16, torch.float32)]
+    specs += [("up2", 1, torch.bfloat16, (16, 256, 64, 64))]
+    specs += [("up2", 1, torch.bfloat16, (16, 512, s, s)) for s in (32, 16, 8, 4)]
+    specs += [("up2", 0, torch.bfloat16, (32, 64, 128, 128))]
     for kind, arg, dt, shape in specs:
         x = torch.randn(shape, generator=g, device="cuda").to(dt)
         C = shape[1]
@@ -450,14 +473,24 @@ def fir_kernel_phase(torch, tag):
         adj = abs(lhs - rhs) / float(y.double().norm() * gr.double().norm())
         assert adj <= (1e-6 if dt == torch.float32 else 1e-3), f"{kind} adjoint identity off by {adj}"
         del yp, yl, gr
+        ye = torch.empty_like(y)
+        entry = lambda: (ck.UP2 if kind == "up2" else ck.DOWN2).launch(  # noqa: E731
+            x.data_ptr(), ye.data_ptr(), int(dt == torch.bfloat16), shape[0] * C, shape[2], shape[3], arg, 1.0,
+            ck.stream_of(x.device))
+        entry()
+        torch.cuda.synchronize()
+        assert torch.equal(ye, y), f"{kind} through its C entry point differs from its wrapper"
+        entry_ms, entry_median = cuda_time_ms(torch, entry)
         label = f"{kind}({'extend' if kind == 'up2' else 'pad'}={arg}, {str(dt)[6:]}, {list(shape)})"
-        res = dict(err=err, ms=cuda_time_ms(torch, run), plain_ms=cuda_time_ms(torch, plain, iters=5),
-                   library_ms=cuda_time_ms(torch, library), bytes=nbytes(x, y), ops=y.numel() * flops_per_out,
-                   extra=f"adjoint identity relative error {adj:.3g}; library max |diff| vs plain {lib_err:.3g}")
+        res = dict(err=err, **kernel_times(torch, run, plain, library, plain_iters=5), bytes=nbytes(x, y),
+                   ops=y.numel() * flops_per_out,
+                   extra=f"entry ms {entry_ms:.4f} (median {entry_median:.4f}); adjoint identity relative error "
+                         f"{adj:.3g}; library max |diff| vs plain {lib_err:.3g}")
         report_kernel(label, res, tag)
-        if dt == torch.bfloat16 and arg == 1:
-            results[kind] = res
-        del x, y
+        main = FIR_MAIN.get((kind, arg, str(dt)[6:], shape))
+        if main:
+            results[main] = res
+        del x, y, ye
     return results
 
 
@@ -887,7 +920,8 @@ def main():
     kernels = [
         {"name": name, "route": "cuda", "source": f"pasta_gan_tpu_torch/csrc/{ck.KERNELS[name].source}",
          "replaces": REPLACES[name], "launches": sum(counts[name] for counts in launches.values()),
-         "max_abs_err": res["err"], "ms": res["ms"], "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
+         "max_abs_err": res["err"], "ms": res["ms"], "ms_median": res["ms_median"], "plain_ms": res["plain_ms"],
+         "bound_ms": res["bound_ms"],
          "bound_by": res["bound_by"], "library_ms": res["library_ms"],
          "launches_by_path": {path: counts[name] for path, counts in launches.items()}}
         for name, res in results.items()

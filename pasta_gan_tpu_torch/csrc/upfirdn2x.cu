@@ -17,27 +17,57 @@
 // 1 - pad) in 2-D, which is how ops/upfirdn_kernels.py differentiates them.
 //
 // What bounds it on an H100: bytes.  Each output needs 2 (up) or 4 (down)
-// taps per axis and ~10 or ~40 flops, far below the card's ~20 flops per
+// taps per axis and ~6 or ~40 flops, far below the card's ~20 flops per
 // byte at fp32.  At the training path's largest shapes (up2 pre-FIR
 // [16,128,128,128] bf16 -> [16,128,258,258]: 67 MB read + 273 MB written;
 // down2 [32,64,256,256] bf16 -> [32,64,128,128]: 268 MB + 67 MB) the floor is
-// ~0.10 ms at 3.35 TB/s.
+// ~0.10 ms at 3.35 TB/s.  up2 writes four times what it reads, so its pace
+// is set by the stores and by the instructions issued per stored byte:
+// measured on an H100 80GB HBM3 (700 W) the pre-FIR takes ~0.16 ms where a
+// memset of its output takes ~0.087 ms, and the per-output arithmetic and
+// index work (64 registers a thread, half the SM's threads) is what is left.
 //
-// Design: one thread per output pixel (down2) or output pair (up2) of one
-// (n, c) plane; a block covers a run of one output row, so the stores are
-// coalesced and the neighbouring threads' overlapping taps come from L1.
-// The taps are read straight from device memory, each input byte once from
-// DRAM.  Each block loops over a
-// share of the planes (grid_for).  The TPU kernel's DMA of row halos,
+// up2 design: each thread computes a unit of 16 outputs (2 x 8 bf16 or 2 x
+// 4 fp32 outputs) and writes it as 16-byte stores at 16-byte-aligned offsets
+// of the flat output.  A row of an extend-1 output (2W + 2 elements) is never
+// 16-byte aligned, so the threads index the flat output, not rows, and carry
+// each unit's (plane, row, column) to their next unit by adds and compares.
+// A unit of n outputs inside one row needs a window of n/2 + 4 input
+// columns from two input rows; the thread loads it as 4- or 8-byte pairs from an even column
+// (one thread per output pair took 6 scalar loads for 2 outputs), runs the
+// vertical pass once per column and the horizontal pass per output.  A unit
+// that crosses a row's end (one per row) is computed from both rows' windows
+// by the thread that owns the row, in the iteration whose region holds the
+// row's end: a warp's lanes own consecutive rows and take their crossings
+// together, and the crossing unit is written beside its neighbours (written
+// apart, before or after the main loop, the lone 32-byte sectors and the
+// lines around them cost partial-line writes: ~0.02 ms more at the pre-FIR
+// shape).  Rows shorter
+// than a unit go to a kernel of one thread per output.  The pair loads need an
+// even W and an input pointer aligned to a pair; a view at an odd element
+// offset or an odd W loads the same window element by element.  Neighbouring
+// threads' windows overlap and consecutive output rows share input rows, so
+// the reloads hit L1/L2 and each input byte comes from DRAM once.  The grid
+// is one wave of resident blocks (launch.cuh) that stride over the units.
+//
+// down2 design: one thread per output pixel of one (n, c) plane; a block
+// covers a run of one output row, so the stores are coalesced and the
+// neighbouring threads' overlapping taps come from L1.  Each block loops over
+// a share of the planes (grid_for).  The TPU kernel's DMA of row halos,
 // sublane padding and stack-temporary interleave have no counterpart here.
 //
 // Numerics: the vertical pass, then the horizontal one, then the gain, each
 // product and sum rounded to nearest (no FMA contraction), in the order of
 // the plain PyTorch version (up2_reference / down2_reference), so both agree
-// bit for bit in fp32 and, after the one bf16 rounding, in bf16.
+// bit for bit in fp32 and, after the one bf16 rounding, in bf16.  A gain of 1
+// skips its multiply, which returns its input unchanged.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "launch.cuh"
 
 namespace {
 
@@ -84,53 +114,268 @@ __device__ __forceinline__ UpTaps up_taps(int o, int extend) {
   return t;
 }
 
-template <typename T>
-__device__ __forceinline__ void store_pair(T* p, float a, float b);
-template <>
-__device__ __forceinline__ void store_pair<float>(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+// ------------------------------------------------------------------- up2
+
+constexpr int kUpThreads = 256;
+
+// Elements p[0], p[1] as one aligned word.
+__device__ __forceinline__ void load_pair(const float* p, float& a, float& b) {
+  const float2 v = __ldg(reinterpret_cast<const float2*>(p));
+  a = v.x;
+  b = v.y;
 }
-template <>
-__device__ __forceinline__ void store_pair<__nv_bfloat16>(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+__device__ __forceinline__ void load_pair(const __nv_bfloat16* p, float& a, float& b) {
+  const unsigned w = __ldg(reinterpret_cast<const unsigned*>(p));
+  a = __uint_as_float(w << 16);  // bf16 -> fp32 is exact: the high half of the word
+  b = __uint_as_float(w & 0xffff0000u);
 }
 
-// Each thread writes the output pair (2t, 2t + 1) of one row: both read
-// input columns among t - 1, t, t + 1, so the pair costs 6 loads, not 8, and
-// one 4- or 8-byte store (Wo is even, so the pair is aligned).
+// 16 bytes of output: kV consecutive elements, one vector store.
 template <typename T>
-__global__ void up2_kernel(const T* __restrict__ x, T* __restrict__ y, long long planes, int H, int W,
-                           int extend, float gain) {
-  const int Ho = 2 * H + 2 * extend, Wo = 2 * W + 2 * extend;
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  const int oy = blockIdx.y;
-  if (2 * t >= Wo) return;
-  const UpTaps ty = up_taps(oy, extend), tx0 = up_taps(2 * t, extend), tx1 = up_taps(2 * t + 1, extend);
+struct Chunk;
+template <>
+struct Chunk<float> {
+  static constexpr int kV = 4;
+  __device__ __forceinline__ static void store(float* p, const float* v) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  }
+};
+template <>
+struct Chunk<__nv_bfloat16> {
+  static constexpr int kV = 8;
+  __device__ __forceinline__ static unsigned pack(float a, float b) {
+    __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // a in the low half
+    return *reinterpret_cast<unsigned*>(&h);
+  }
+  __device__ __forceinline__ static void store(__nv_bfloat16* p, const float* v) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(pack(v[0], v[1]), pack(v[2], v[3]), pack(v[4], v[5]), pack(v[6], v[7]));
+  }
+};
+
+// Output (r, c) of one plane, before the gain.
+template <typename T>
+__device__ __forceinline__ float up2_one(const T* __restrict__ plane, int H, int W, int r, int c, int extend) {
+  const UpTaps ty = up_taps(r, extend), tx = up_taps(c, extend);
   const int y0 = ty.i0, y1 = ty.i0 + 1;
   const bool ry0 = y0 >= 0 && y0 < H, ry1 = y1 >= 0 && y1 < H;
-  bool rc[3];
+  float v[2];
 #pragma unroll
-  for (int k = 0; k < 3; ++k) rc[k] = t - 1 + k >= 0 && t - 1 + k < W;
-  // output 2t reads columns t - 1 and t; output 2t + 1 reads t, t + 1
-  // (extend 0) or t - 1, t (extend 1)
-  const bool shift = tx1.i0 == t;
-  const long long in_plane = (long long)H * W, out_plane = (long long)Ho * Wo;
-#pragma unroll 4
-  for (long long p = blockIdx.z; p < planes; p += gridDim.z) {
-    const T* r0 = x + p * in_plane + (long long)y0 * W + (t - 1);
-    const T* r1 = x + p * in_plane + (long long)y1 * W + (t - 1);
-    float v[3];  // vertical pass at columns t - 1, t, t + 1
+  for (int k = 0; k < 2; ++k) {
+    const int col = tx.i0 + k;
+    const bool rc = col >= 0 && col < W;
+    const float a0 = (ry0 && rc) ? load(plane + (long long)y0 * W + col) : 0.f;
+    const float a1 = (ry1 && rc) ? load(plane + (long long)y1 * W + col) : 0.f;
+    v[k] = mac(__fmul_rn(a0, ty.w0), a1, ty.w1);
+  }
+  return mac(__fmul_rn(v[0], tx.w0), v[1], tx.w1);
+}
+
+// Outputs (r, c0 .. c0 + kOut - 1) of one plane, before the gain; c0 is even
+// (every row and chunk starts at an even flat offset), so output c0 + k reads
+// input columns lo + i0(k) and lo + i0(k) + 1 with lo = c0 / 2 - 1.  `pairs`:
+// W is even and the input is aligned to a pair.
+template <typename T, int kExtend, int kOut>
+__device__ __forceinline__ void up2_row(const T* __restrict__ plane, int H, int W, int r, int c0, bool pairs,
+                                        float* out) {
+  constexpr int kN = kOut / 2 + 4;  // window of input columns from an even one
+  const UpTaps ty = up_taps(r, kExtend);
+  const int y0 = ty.i0, y1 = ty.i0 + 1;
+  const bool ry0 = y0 >= 0 && y0 < H, ry1 = y1 >= 0 && y1 < H;
+  const T* row0 = plane + (long long)y0 * W;
+  const T* row1 = plane + (long long)y1 * W;
+  const int lo = c0 / 2 - 1;
+  const int base = lo & ~1;  // two's complement: -1 -> -2
+  float v[kN];               // vertical pass at columns base .. base + kN - 1
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      const float a0 = (ry0 && rc[k]) ? load(r0 + k) : 0.f;
-      const float a1 = (ry1 && rc[k]) ? load(r1 + k) : 0.f;
-      v[k] = mac(__fmul_rn(a0, ty.w0), a1, ty.w1);
+  for (int i = 0; i < kN; i += 2) {
+    const int col = base + i;
+    float a[2] = {0.f, 0.f}, b[2] = {0.f, 0.f};
+    if (pairs) {
+      if (col >= 0 && col < W) {  // W even: the pair lies inside the row or outside it
+        if (ry0) load_pair(row0 + col, a[0], a[1]);
+        if (ry1) load_pair(row1 + col, b[0], b[1]);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+        if (col + k >= 0 && col + k < W) {
+          if (ry0) a[k] = load(row0 + col + k);
+          if (ry1) b[k] = load(row1 + col + k);
+        }
+      }
     }
-    const float h0 = mac(__fmul_rn(v[0], tx0.w0), v[1], tx0.w1);
-    const float h1 = mac(__fmul_rn(shift ? v[1] : v[0], tx1.w0), shift ? v[2] : v[1], tx1.w1);
-    store_pair(y + p * out_plane + (long long)oy * Wo + 2 * t, __fmul_rn(h0, gain), __fmul_rn(h1, gain));
+#pragma unroll
+    for (int k = 0; k < 2; ++k) v[i + k] = mac(__fmul_rn(a[k], ty.w0), b[k], ty.w1);
+  }
+  const bool shift = lo & 1;  // the window starts one column before lo
+  float u[kN - 1];            // u[i]: column lo + i
+#pragma unroll
+  for (int i = 0; i < kN - 1; ++i) u[i] = shift ? v[i + 1] : v[i];
+#pragma unroll
+  for (int k = 0; k < kOut; ++k) {
+    const int i0 = kExtend ? k / 2 : (k + 1) / 2;
+    const bool odd = (k + kExtend) & 1;  // parity of the unextended output index
+    out[k] = mac(__fmul_rn(u[i0], odd ? 0.75f : 0.25f), u[i0 + 1], odd ? 0.25f : 0.75f);
   }
 }
+
+// Outputs f0 .. f0 + kOut - 1 of the flat output, before the gain, that start
+// at (plane p, row r, column c0) and run past the row's end into the next row
+// (a row holds at least kOut outputs): both rows' windows are computed
+// (up2_row masks the columns that fall outside each row) and each element
+// takes its own row's value.
+template <typename T, int kExtend, int kOut>
+__device__ __forceinline__ void up2_crossing(const T* __restrict__ x, int H, int W, long long p, int r, int c0,
+                                             long long f0, long long total, bool pairs, float* out) {
+  const int Ho = 2 * H + 2 * kExtend, Wo = 2 * W + 2 * kExtend;
+  const long long plane_in = (long long)H * W;
+  const int split = Wo - c0;  // elements k < split lie in row r
+  up2_row<T, kExtend, kOut>(x + p * plane_in, H, W, r, c0, pairs, out);
+  if (f0 + split < total) {  // the next row exists
+    const bool wrap = r + 1 == Ho;
+    float next[kOut];
+    up2_row<T, kExtend, kOut>(x + (p + wrap) * plane_in, H, W, wrap ? 0 : r + 1, c0 - Wo, pairs, next);
+#pragma unroll
+    for (int k = 0; k < kOut; ++k)
+      if (k >= split) out[k] = next[k];
+  }
+}
+
+// Outputs f0 .. f0 + kOut - 1 times the gain, as 16-byte stores where `vec`
+// (the output is 16-byte aligned) and the tensor's end allow.
+template <typename T, int kOut>
+__device__ __forceinline__ void store_outputs(T* __restrict__ y, long long f0, long long total, float gain, bool vec,
+                                              float* out) {
+  constexpr int kV = Chunk<T>::kV;
+  if (gain != 1.f) {
+#pragma unroll
+    for (int k = 0; k < kOut; ++k) out[k] = __fmul_rn(out[k], gain);
+  }
+  if (vec && f0 + kOut <= total) {
+#pragma unroll
+    for (int k = 0; k < kOut; k += kV) Chunk<T>::store(y + f0 + k, out + k);
+  } else {
+#pragma unroll
+    for (int k = 0; k < kOut; ++k)
+      if (f0 + k < total) store(y + f0 + k, out[k]);
+  }
+}
+
+constexpr int kUpMinBlocks = 4;  // __launch_bounds__: at most 64 registers a thread
+constexpr int kUpChunks = 2;     // adjacent 16-byte output chunks a thread computes at once
+
+// x: [planes, H, W]; y: the flat [planes, Ho, Wo] output, `total` elements,
+// in units of kOut outputs.  Iteration i of every thread covers the region
+// [i * step, (i + 1) * step) of the flat output: the thread's own unit
+// (tid, tid + stride, ...) when it lies inside one output row, carrying
+// (plane, row, column) from one iteration to the next by adds and compares,
+// and the units that cross the end of its rows (tid, tid + stride, ...) whose
+// end lies in the region.  A warp's 32 rows are consecutive, so its lanes
+// take their crossing units in the same iteration (no lane waits on another),
+// about once in Wo / kOut iterations; and a crossing unit is written in the
+// same iteration as its neighbours: a 32-byte sector written alone, long
+// before or after the rest of its 128-byte line, costs the memory a
+// partial-line write.
+template <typename T, int kExtend>
+__global__ void __launch_bounds__(kUpThreads, kUpMinBlocks)
+    up2_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, long long rows, float gain, bool pairs,
+               bool vec_store) {
+  constexpr int kOut = kUpChunks * Chunk<T>::kV;  // outputs a thread computes at once
+  const int Ho = 2 * H + 2 * kExtend, Wo = 2 * W + 2 * kExtend;
+  const long long total = rows * Wo;
+  const long long plane_in = (long long)H * W;
+  const long long tid = (long long)blockIdx.x * kUpThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kUpThreads;
+
+  const long long step = stride * kOut;  // flat elements between a thread's units
+  const long long step_rows = step / Wo;
+  const int step_c = (int)(step - step_rows * Wo);
+  const long long step_p = step_rows / Ho;
+  const int step_r = (int)(step_rows - step_p * Ho);
+  long long f0 = tid * kOut;  // the thread's unit: (plane p, row r, column c)
+  const long long g0 = f0 / Wo;
+  int c = (int)(f0 - g0 * Wo);
+  long long p = g0 / Ho;
+  int r = (int)(g0 - p * Ho);
+  long long cg = tid;                // the next row whose crossing unit this thread writes
+  long long cg_end = (tid + 1) * Wo;  // and its end in the flat output
+#pragma unroll 1
+  for (long long start = step; start - step < total; start += step) {
+    if (f0 < total && c + kOut <= Wo) {
+      float out[kOut];
+      up2_row<T, kExtend, kOut>(x + p * plane_in, H, W, r, c, pairs, out);
+      store_outputs<T, kOut>(y, f0, total, gain, vec_store, out);
+    }
+    f0 += step;
+    c += step_c;
+    r += step_r;
+    p += step_p;
+    if (c >= Wo) {
+      c -= Wo;
+      ++r;
+    }
+    if (r >= Ho) {
+      r -= Ho;
+      ++p;
+    }
+    for (; cg < rows && cg_end <= start; cg += stride, cg_end += stride * Wo) {
+      const long long fc = cg_end / kOut * kOut;    // the unit holding row cg's last element
+      if (fc == cg_end || fc < cg_end - Wo) continue;  // no crossing, or it starts in an earlier row
+      const long long pc = cg / Ho;
+      float out[kOut];
+      up2_crossing<T, kExtend, kOut>(x, H, W, pc, (int)(cg - pc * Ho), (int)(fc - cg_end + Wo), fc, total, pairs,
+                                     out);
+      store_outputs<T, kOut>(y, fc, total, gain, vec_store, out);
+    }
+  }
+}
+
+// Rows shorter than a unit (Wo < kOut: the b8 up-conv's 10-wide rows in
+// bf16): one thread per output of the flat output, scalar stores.  Every
+// unit of up2_kernel would cross a row there, and a thread that walks its 16
+// outputs one after another made these few-MB launches slower than one
+// thread per output pair.
+template <typename T, int kExtend>
+__global__ void __launch_bounds__(kUpThreads)
+    up2_short_rows_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, long long total, float gain) {
+  const int Ho = 2 * H + 2 * kExtend, Wo = 2 * W + 2 * kExtend;
+  const long long plane_in = (long long)H * W;
+  const long long stride = (long long)gridDim.x * kUpThreads;
+  for (long long f = (long long)blockIdx.x * kUpThreads + threadIdx.x; f < total; f += stride) {
+    const long long g = f / Wo;
+    const long long p = g / Ho;
+    const float v = up2_one(x + p * plane_in, H, W, (int)(g - p * Ho), (int)(f - g * Wo), kExtend);
+    store(y + f, gain != 1.f ? __fmul_rn(v, gain) : v);
+  }
+}
+
+template <typename T, int kExtend>
+int launch_up2(const void* x, void* y, long long planes, int H, int W, float gain, cudaStream_t stream) {
+  constexpr int kOut = kUpChunks * Chunk<T>::kV;
+  const int Ho = 2 * H + 2 * kExtend, Wo = 2 * W + 2 * kExtend;
+  const long long rows = planes * Ho;
+  if (Wo < kOut) {
+    const long long total = rows * Wo;
+    const long long blocks = (total + kUpThreads - 1) / kUpThreads;
+    if (blocks == 0) return (int)cudaGetLastError();
+    static pasta::ResidentWave wave;
+    const long long grid = wave.grid(up2_short_rows_kernel<T, kExtend>, kUpThreads, blocks);
+    up2_short_rows_kernel<T, kExtend><<<(unsigned)grid, kUpThreads, 0, stream>>>((const T*)x, (T*)y, H, W, total,
+                                                                                gain);
+    return (int)cudaGetLastError();
+  }
+  const long long blocks = ((rows * Wo + kOut - 1) / kOut + kUpThreads - 1) / kUpThreads;
+  if (blocks == 0) return (int)cudaGetLastError();
+  const bool pairs = W % 2 == 0 && reinterpret_cast<std::uintptr_t>(x) % (2 * sizeof(T)) == 0;
+  const bool vec_store = reinterpret_cast<std::uintptr_t>(y) % 16 == 0;
+  static pasta::ResidentWave wave;
+  const long long grid = wave.grid(up2_kernel<T, kExtend>, kUpThreads, blocks);
+  up2_kernel<T, kExtend><<<(unsigned)grid, kUpThreads, 0, stream>>>((const T*)x, (T*)y, H, W, rows, gain, pairs,
+                                                                     vec_store);
+  return (int)cudaGetLastError();
+}
+
+// ----------------------------------------------------------------- down2
 
 template <typename T>
 __global__ void down2_kernel(const T* __restrict__ x, T* __restrict__ y, long long planes, int H, int W,
@@ -183,22 +428,18 @@ dim3 grid_for(long long planes, int Ho, int Wo, int threads) {
 
 }  // namespace
 
-// x: [planes, H, W] contiguous (planes = N * C); y: [planes, 2H + 2 extend,
-// 2W + 2 extend]; bf16 != 0 selects __nv_bfloat16 for both, else float.
-// Launches on `stream`, allocates nothing, returns cudaGetLastError().
+// x: [planes, H, W] contiguous (planes = N * C), any element offset; y:
+// [planes, 2H + 2 extend, 2W + 2 extend]; bf16 != 0 selects __nv_bfloat16
+// for both, else float.  Launches on `stream`, allocates nothing, returns
+// cudaGetLastError().
 extern "C" int pasta_up2(const void* x, void* y, int bf16, long long planes, int H, int W, int extend,
                          float gain, void* stream) {
-  const int Ho = 2 * H + 2 * extend, Wo = 2 * W + 2 * extend;
-  const int threads = threads_for(Wo / 2);  // one thread per output pair
-  const dim3 grid = grid_for(planes, Ho, Wo / 2, threads);
   const cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
-    up2_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>((const __nv_bfloat16*)x, (__nv_bfloat16*)y, planes, H,
-                                                       W, extend, gain);
-  } else {
-    up2_kernel<float><<<grid, threads, 0, s>>>((const float*)x, (float*)y, planes, H, W, extend, gain);
+    return extend ? launch_up2<__nv_bfloat16, 1>(x, y, planes, H, W, gain, s)
+                  : launch_up2<__nv_bfloat16, 0>(x, y, planes, H, W, gain, s);
   }
-  return (int)cudaGetLastError();
+  return extend ? launch_up2<float, 1>(x, y, planes, H, W, gain, s) : launch_up2<float, 0>(x, y, planes, H, W, gain, s);
 }
 
 // x: [planes, H, W] with H, W even; y: [planes, H/2 + pad - 1, W/2 + pad - 1].

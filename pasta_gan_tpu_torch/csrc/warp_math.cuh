@@ -30,15 +30,33 @@ __device__ __forceinline__ float lerp2(float a, float b, float wa, float wb) {
   return __fadd_rn(__fmul_rn(a, wa), __fmul_rn(b, wb));
 }
 
+// The homography's y-column products for destination row y: the same rounded
+// values that src_coords forms at every pixel of the row, so a kernel that
+// walks a row computes them once.
+struct RowTerms {
+  float m1y, m4y, m7y;
+};
+
+__device__ __forceinline__ RowTerms row_terms(const Homography& M, int y) {
+  const float gy = (float)y;
+  return {__fmul_rn(M.m[1], gy), __fmul_rn(M.m[4], gy), __fmul_rn(M.m[7], gy)};
+}
+
 // Source coordinates of destination pixel (x, y) under the dst->src homography
-// (cv2 convention: integer pixel centres, |denom| < 1e-8 clamped to 1e-8).
-__device__ __forceinline__ void src_coords(const Homography& M, int x, int y, float& sx, float& sy) {
-  const float gx = (float)x, gy = (float)y;
+// (cv2 convention: integer pixel centres, |denom| < 1e-8 clamped to 1e-8),
+// with row y's terms from row_terms.
+__device__ __forceinline__ void src_coords_row(const Homography& M, const RowTerms& r, int x, float& sx,
+                                               float& sy) {
+  const float gx = (float)x;
   const float* m = M.m;
-  float denom = __fadd_rn(__fadd_rn(__fmul_rn(m[6], gx), __fmul_rn(m[7], gy)), m[8]);
+  float denom = __fadd_rn(__fadd_rn(__fmul_rn(m[6], gx), r.m7y), m[8]);
   if (fabsf(denom) < 1e-8f) denom = 1e-8f;
-  sx = __fdiv_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[0], gx), __fmul_rn(m[1], gy)), m[2]), denom);
-  sy = __fdiv_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[3], gx), __fmul_rn(m[4], gy)), m[5]), denom);
+  sx = __fdiv_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[0], gx), r.m1y), m[2]), denom);
+  sy = __fdiv_rn(__fadd_rn(__fadd_rn(__fmul_rn(m[3], gx), r.m4y), m[5]), denom);
+}
+
+__device__ __forceinline__ void src_coords(const Homography& M, int x, int y, float& sx, float& sy) {
+  src_coords_row(M, row_terms(M, y), x, sx, sy);
 }
 
 // Bilinear taps of an Hs x Ws plane: flat indices (-1 = a zero tap) and weights.

@@ -102,7 +102,7 @@ def norm_warp(src0, src1, minv, valid, n0: int, out_hw) -> torch.Tensor:
 
 
 def _check_grid(B: int, N: int) -> None:
-    """norm_warp and denorm_warp put one (sample, part) on each grid row."""
+    """norm_warp puts one (sample, part) on each grid row."""
     if B * N > 65535:
         raise ValueError(f"{B} samples x {N} parts exceed the 65535 grid rows of one launch")
 
@@ -168,7 +168,6 @@ def denorm_warp(srcs, minv, valid, out_hw, border: str = "constant") -> torch.Te
     B, N, C, Hs, Ws = srcs.shape
     H, W = out_hw
     dev = srcs.device
-    _check_grid(B, N)
     check_tensor(srcs, "srcs", (B, N, C, Hs, Ws), dev)
     check_tensor(minv, "minv", (B, N, 3, 3), dev)
     check_tensor(valid, "valid", (B, N), dev)

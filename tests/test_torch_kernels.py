@@ -21,6 +21,11 @@ tolerance.
 FIR tolerances: fp32 atol 1e-6 (the kernels repeat the plain version's
 rounded products and sums in its order, so they agree to the bit on the
 card); bf16 within 2 ulp (relative 2^-7) of the plain version.
+
+The cases of the index paths that denorm_warp's and up2's vector stores and
+paired loads add (ragged rows, one part, an invalid sample; ragged flat
+ends, narrow rows, inputs at an odd element offset) are held to the bit in
+fp32: rtol 0, atol 0.
 """
 
 import os
@@ -163,6 +168,39 @@ def test_denorm_warp_kernel_matches_plain(cuda_device, seed, border):
     assert not out[1, 2].any(), "an invalid part must give an all-zero plane"
 
 
+def _denorm_exact(args, border):
+    before = ck.DENORM_WARP.launches
+    out = wk.denorm_warp(*args, border)
+    torch.cuda.synchronize()
+    assert ck.DENORM_WARP.launches == before + 1
+    torch.testing.assert_close(out, wk.denorm_warp_reference(*args, border), rtol=0, atol=0)
+    return out
+
+
+# frames whose width is not a multiple of 4 take the scalar-store path with a
+# ragged last quad of each row
+@pytest.mark.cuda
+@pytest.mark.parametrize("border", ["constant", "replicate"])
+@pytest.mark.parametrize("frame,hw", [(256, (256, 190)), (64, (72, 41))])
+def test_denorm_warp_kernel_ragged_rows_bit_exact(cuda_device, frame, hw, border):
+    srcs, M, valid, _ = _denorm_inputs(2, frame=frame)
+    args = (torch.from_numpy(srcs).to(cuda_device), inv3x3(torch.from_numpy(M)).to(cuda_device).contiguous(),
+            torch.from_numpy(valid).to(cuda_device), hw)
+    _denorm_exact(args, border)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("border", ["constant", "replicate"])
+def test_denorm_warp_kernel_one_part_and_an_invalid_sample(cuda_device, border):
+    srcs, minv, valid, hw = _denorm_args(3, cuda_device)
+    one = (srcs[:, 2:3].contiguous(), minv[:, 2:3].contiguous(), valid[:, 2:3].contiguous(), hw)
+    _denorm_exact(one, border)
+    valid = valid.clone()
+    valid[0] = 0.0
+    out = _denorm_exact((srcs, minv, valid, hw), border)
+    assert not out[0].any(), "an invalid sample must give all-zero planes"
+
+
 @pytest.mark.parametrize("kernel", ["norm_warp", "composite", "denorm_warp"])
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch(kernel):
     before = {k.name: k.launches for k in ck.KERNELS.values()}
@@ -262,6 +300,55 @@ def test_fir_kernels_match_plain(cuda_device, size, dtype):
             torch.cuda.synchronize()
             assert ck.DOWN2.launches == before + 1
             _fir_close(y, uk.down2_reference(x, pad, 4.0), dtype)
+
+
+def _odd_offset_view(x):
+    """The same values, contiguous, starting one element past an aligned base."""
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = flat[1:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % (2 * x.element_size())  # not aligned to a pair
+    return view
+
+
+# up2 indexes its output as flat 16-byte chunks: a flat size that is not a
+# multiple of 8 leaves a ragged last chunk, rows narrower than a chunk make
+# chunks cross row and plane ends, rows shorter than a thread's unit of 16
+# bf16 or 8 fp32 outputs take the one-thread-per-output kernel, and an input
+# at an odd element offset (or an odd width) cannot take the paired loads
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,extend,shape", [
+    ("ragged end", 0, (1, 3, 5, 7)),  # 3 x 10 x 14 = 420 outputs
+    ("ragged end", 1, (1, 3, 4, 6)),  # 3 x 10 x 14 = 420 outputs
+    ("one plane", 0, (1, 1, 16, 10)),
+    ("one plane", 1, (1, 1, 16, 10)),
+    ("narrow rows", 0, (2, 3, 4, 6)),
+    ("narrow rows", 1, (2, 3, 5, 7)),
+    ("odd offset", 0, (2, 4, 8, 10)),
+    ("odd offset", 1, (2, 4, 8, 10)),
+    ("odd offset", 1, (1, 2, 3, 5)),
+    ("short rows", 0, (2, 3, 4, 3)),  # rows of 6
+    ("short rows", 1, (2, 3, 3, 2)),  # rows of 6
+    ("short rows", 1, (2, 3, 4, 4)),  # rows of 10: short in bf16, not in fp32
+    ("short rows", 1, (1, 2, 4, 4)),
+])
+def test_up2_kernel_flat_chunks_and_unaligned_inputs(cuda_device, case, extend, shape, dtype):
+    x = _fir_input(7, shape, dtype, cuda_device)
+    if case == "odd offset":
+        x = _odd_offset_view(x)
+    else:
+        assert x.numel() and x.data_ptr() % 16 == 0
+    before = ck.UP2.launches
+    gain = 4.0 if case in ("one plane", "short rows") else 1.0
+    y = uk.up2(x, extend=extend, gain=gain)
+    torch.cuda.synchronize()
+    assert ck.UP2.launches == before + 1
+    ref = uk.up2_reference(x, extend, gain)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, ref, rtol=0, atol=0)
+    else:
+        _fir_close(y, ref, dtype)
 
 
 @pytest.mark.cuda
