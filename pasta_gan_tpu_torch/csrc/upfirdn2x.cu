@@ -50,12 +50,37 @@
 // the reloads hit L1/L2 and each input byte comes from DRAM once.  The grid
 // is one wave of resident blocks (launch.cuh) that stride over the units.
 //
-// down2 design: one thread per output pixel of one (n, c) plane; a block
-// covers a run of one output row, so the stores are coalesced and the
-// neighbouring threads' overlapping taps come from L1.  Each block loops over
-// a share of the planes (grid_for).  The TPU kernel's DMA of row halos,
-// sublane padding and stack-temporary interleave have no counterpart here.
+// down2 design.  The first port of this kernel gave each thread one output: 16
+// scalar tap loads (2 bytes each in bf16) and one 2-byte store, with blocks
+// covering one output row, so every input row was fetched by the two blocks
+// of the output rows that share it; at the D skip's [32,64,256,256] bf16 it
+// ran at 0.265 ms, 38 % of its bound, paced by load instructions, not bytes.
+// Now a unit is a strip of 8 outputs (4 on rows of 4 to 7) over up to 16
+// output rows of one plane, and its thread streams the strip's input rows
+// once, top to bottom: each row's 16 aligned columns as 16-byte vectors
+// (element pairs where the row or the pointer is not 16-byte aligned: the
+// pad-0 adjoint's rows of 2W + 2 are 4-byte aligned in bf16; single elements
+// for a view at an odd offset) plus its two edge columns as single loads, and
+// each input row feeds the vertical pass of the two output rows it is a tap
+// of (the TPU kernel's band of 2 th + 3 rows, held in registers). A finished
+// output row takes the horizontal pass and one 16-byte store (two in fp32).
+// So a bf16 output costs ~1 load instruction, not 16, and each input byte is
+// read once but for the 2 rows that neighbouring units share. Units shrink to
+// fewer rows where there would be fewer of them than half the threads the
+// card holds, and launches too small to fill the card even so (the fp32 image
+// pyramid's [32,3,r,r], r <= 64), or with rows shorter than 4 outputs, take
+// one thread per output. The bf16 strips are held to 64 registers (4 blocks
+// of 256 threads an SM): the extra occupancy was worth more than the few
+// spilled bytes of the pair-load path. The grid is one wave of resident
+// blocks (launch.cuh) that stride over the units.
 //
+// What bounds it now (H100 80GB HBM3, 700 W, chip_smoke.py): at the main
+// shape 0.141 ms, 71 % of its bound (2.38 TB/s of 335 MB), where a memset of
+// its 67 MB output takes 0.026 ms; the read stream at ~2.4 TB/s, short of the
+// card's peak, and the two single edge loads a row beside its two vectors.
+// The pad-0 adjoint's pair loads (8 a row) cost 8 % more (0.152 ms at
+// [32,64,258,258]); a funnel-shifted 16-byte load would remove them.
+
 // Numerics: the vertical pass, then the horizontal one, then the gain, each
 // product and sum rounded to nearest (no FMA contraction), in the order of
 // the plain PyTorch version (up2_reference / down2_reference), so both agree
@@ -377,19 +402,182 @@ int launch_up2(const void* x, void* y, long long planes, int H, int W, float gai
 
 // ----------------------------------------------------------------- down2
 
-template <typename T>
-__global__ void down2_kernel(const T* __restrict__ x, T* __restrict__ y, long long planes, int H, int W,
-                             int pad, float gain) {
-  const int Ho = H / 2 + pad - 1, Wo = W / 2 + pad - 1;
-  const int ox = blockIdx.x * blockDim.x + threadIdx.x;
-  const int oy = blockIdx.y;
-  if (ox >= Wo) return;
+constexpr int kDownThreads = 256;
+constexpr int kDownMaxRows = 16;  // output rows of one unit, at most
+
+// How a strip's aligned input columns are loaded: 16-byte vectors (the row
+// and the pointer 16-byte aligned), element pairs (the pointer aligned to a
+// pair; W is even) or single elements (a view at an odd element offset).
+enum DownLoad { kElems = 0, kPairs = 1, kVec16 = 2 };
+
+// kN consecutive elements from p into v[0 .. kN - 1], as fp32.
+template <typename T, int kN, int kLoad>
+__device__ __forceinline__ void load_n(const T* __restrict__ p, float* v) {
+  if constexpr (kLoad == kVec16 && sizeof(T) == 2) {
+#pragma unroll
+    for (int i = 0; i < kN; i += 8) {
+      const uint4 q = __ldg(reinterpret_cast<const uint4*>(p + i));
+      const unsigned w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        v[i + 2 * k] = __uint_as_float(w[k] << 16);  // bf16 -> fp32 is exact
+        v[i + 2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+      }
+    }
+  } else if constexpr (kLoad == kVec16) {
+#pragma unroll
+    for (int i = 0; i < kN; i += 4) {
+      const float4 q = __ldg(reinterpret_cast<const float4*>(p + i));
+      v[i] = q.x;
+      v[i + 1] = q.y;
+      v[i + 2] = q.z;
+      v[i + 3] = q.w;
+    }
+  } else if constexpr (kLoad == kPairs) {
+#pragma unroll
+    for (int i = 0; i < kN; i += 2) load_pair(p + i, v[i], v[i + 1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < kN; ++i) v[i] = load(p + i);
+  }
+}
+
+// v[i] = x[row][2 c0 - kPad + i], i < 2 kOut + 2, zero outside the row;
+// `row` is null for a row outside the plane (all zeros).  `full`: the strip's
+// kOut outputs lie inside the output row, so the 2 kOut columns from 2 c0 lie
+// inside the input row and take kLoad; the two edge columns are single loads
+// (their sectors are the neighbouring strips', in L1).
+template <typename T, int kOut, int kPad, int kLoad>
+__device__ __forceinline__ void down2_row(const T* __restrict__ row, int W, int c0, bool full, float* v) {
+  constexpr int kCols = 2 * kOut + 2;
+  if (row == nullptr) {
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) v[i] = 0.f;
+    return;
+  }
+  const int col0 = 2 * c0 - kPad;
+  if (full) {
+    load_n<T, 2 * kOut, kLoad>(row + 2 * c0, v + kPad);
+    if (kPad) {  // columns 2 c0 - 1 and 2 c0 + 2 kOut
+      v[0] = c0 > 0 ? load(row + col0) : 0.f;
+      v[kCols - 1] = 2 * c0 + 2 * kOut < W ? load(row + 2 * c0 + 2 * kOut) : 0.f;
+    } else {  // columns 2 c0 + 2 kOut and + 1, inside the row when full
+      v[kCols - 2] = load(row + 2 * c0 + 2 * kOut);
+      v[kCols - 1] = load(row + 2 * c0 + 2 * kOut + 1);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      const int col = col0 + i;
+      v[i] = (col >= 0 && col < W) ? load(row + col) : 0.f;
+    }
+  }
+}
+
+// n = kOut outputs at p as one or two 16-byte stores (or one 8-byte store for
+// 4 bf16) where `vec` (p aligned to them), else element by element (n <= kOut).
+template <typename T, int kOut>
+__device__ __forceinline__ void down2_store(T* __restrict__ p, const float* h, int n, bool vec) {
+  if (vec && n == kOut) {
+    if constexpr (kOut * sizeof(T) >= 16) {
+#pragma unroll
+      for (int k = 0; k < kOut; k += Chunk<T>::kV) Chunk<T>::store(p + k, h + k);
+      return;
+    } else if constexpr (sizeof(T) == 2 && kOut == 4) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(Chunk<T>::pack(h[0], h[1]), Chunk<T>::pack(h[2], h[3]));
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kOut; ++k)
+    if (k < n) store(p + k, h[k]);
+}
+
+// A unit is a strip of kOut output columns over `rows` output rows of one
+// plane.  Its thread streams the 2 rows + 2 input rows down the strip
+// once, in order: row 2o - kPad + t is tap t of output row o, so every input
+// row after the first two is tap 2 or 3 of the row being finished (`cur`)
+// and tap 0 or 1 of the next (`nxt`), and the vertical pass keeps the plain
+// version's order of taps.  A finished row takes the horizontal pass per
+// output and one vector store.  Lanes take consecutive strips of a row, so a
+// warp's loads and stores cover whole rows.
+template <typename T, int kOut, int kPad, int kLoad>
+__global__ void __launch_bounds__(kDownThreads, sizeof(T) == 2 ? 4 : 1)
+    down2_kernel(const T* __restrict__ x, T* __restrict__ y, long long planes, int H, int W, int rows,
+                 float gain, bool vec_store) {
+  constexpr int kCols = 2 * kOut + 2;
+  const int Ho = H / 2 + kPad - 1, Wo = W / 2 + kPad - 1;
+  const int strips = (Wo + kOut - 1) / kOut;
+  const int chunks = (Ho + rows - 1) / rows;
+  const long long units = planes * chunks * strips;
+  const long long stride = (long long)gridDim.x * kDownThreads;
+  const float w0 = 0.125f, w1 = 0.375f, w2 = 0.375f, w3 = 0.125f;
+#pragma unroll 1
+  for (long long u = (long long)blockIdx.x * kDownThreads + threadIdx.x; u < units; u += stride) {
+    const long long g = u / strips;
+    const int c0 = (int)(u - g * strips) * kOut;
+    const long long p = g / chunks;
+    const int o0 = (int)(g - p * chunks) * rows;
+    const int o1 = min(o0 + rows, Ho);
+    const bool full = c0 + kOut <= Wo;
+    const T* plane = x + p * ((long long)H * W);
+    T* out = y + (p * Ho + o0) * (long long)Wo + c0;
+    const auto row = [&](int r) -> const T* { return (r >= 0 && r < H) ? plane + (long long)r * W : nullptr; };
+    float cur[kCols], nxt[kCols], v[kCols];
+    const int r0 = 2 * o0 - kPad;
+    down2_row<T, kOut, kPad, kLoad>(row(r0), W, c0, full, v);
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) cur[i] = __fmul_rn(v[i], w0);
+    down2_row<T, kOut, kPad, kLoad>(row(r0 + 1), W, c0, full, v);
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) cur[i] = mac(cur[i], v[i], w1);
+#pragma unroll 1
+    for (int o = o0; o < o1; ++o, out += Wo) {
+      const int r = 2 * o - kPad + 2;
+      down2_row<T, kOut, kPad, kLoad>(row(r), W, c0, full, v);
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        cur[i] = mac(cur[i], v[i], w2);
+        nxt[i] = __fmul_rn(v[i], w0);
+      }
+      down2_row<T, kOut, kPad, kLoad>(row(r + 1), W, c0, full, v);
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        cur[i] = mac(cur[i], v[i], w3);
+        nxt[i] = mac(nxt[i], v[i], w1);
+      }
+      float h[kOut];
+#pragma unroll
+      for (int k = 0; k < kOut; ++k) {
+        float s = __fmul_rn(cur[2 * k], w0);
+        s = mac(s, cur[2 * k + 1], w1);
+        s = mac(s, cur[2 * k + 2], w2);
+        s = mac(s, cur[2 * k + 3], w3);
+        h[k] = __fmul_rn(s, gain);
+      }
+      down2_store<T, kOut>(out, h, min(kOut, Wo - c0), vec_store);
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) cur[i] = nxt[i];
+    }
+  }
+}
+
+// Rows shorter than 4 outputs, and launches too small to fill the card with
+// strips: one thread per output of the flat output, all 16 taps in flight
+// at once, in blocks of 64 threads spread over the SMs.
+constexpr int kDownOutThreads = 64;
+
+template <typename T, int kPad>
+__global__ void __launch_bounds__(kDownOutThreads)
+    down2_per_output_kernel(const T* __restrict__ x, T* __restrict__ y, int H, int W, long long total, float gain) {
+  const int Ho = H / 2 + kPad - 1, Wo = W / 2 + kPad - 1;
   const float w[4] = {0.125f, 0.375f, 0.375f, 0.125f};
-  const int iy = 2 * oy - pad, ix = 2 * ox - pad;
-  const long long in_plane = (long long)H * W, out_plane = (long long)Ho * Wo;
-#pragma unroll 2
-  for (long long p = blockIdx.z; p < planes; p += gridDim.z) {
-    const T* xp = x + p * in_plane;
+  const long long stride = (long long)gridDim.x * kDownOutThreads;
+  for (long long f = (long long)blockIdx.x * kDownOutThreads + threadIdx.x; f < total; f += stride) {
+    const long long g = f / Wo;
+    const long long p = g / Ho;
+    const int iy = 2 * (int)(g - p * Ho) - kPad, ix = 2 * (int)(f - g * Wo) - kPad;
+    const T* xp = x + p * ((long long)H * W);
     float h = 0.f;
 #pragma unroll
     for (int kx = 0; kx < 4; ++kx) {
@@ -404,26 +592,69 @@ __global__ void down2_kernel(const T* __restrict__ x, T* __restrict__ y, long lo
       }
       h = kx == 0 ? __fmul_rn(v, w[0]) : mac(h, v, w[kx]);
     }
-    store(y + p * out_plane + (long long)oy * Wo + ox, __fmul_rn(h, gain));
+    store(y + f, __fmul_rn(h, gain));
   }
 }
 
-// Blocks of a multiple of 32 threads that cover an output row with the least
-// idle threads (at most 256 a block); the grid's z covers the planes, and
-// each block loops over planes (z, z + gridDim.z, ...) so that ~8k blocks
-// run in all: one short-lived block per (row, plane) spends more time being
-// scheduled than working.
-int threads_for(int Wo) {
-  const int nblk = (Wo + 255) / 256;
-  return 32 * ((Wo + 32 * nblk - 1) / (32 * nblk));
+// Units of 16 output rows, or fewer where that leaves fewer units than half
+// the threads the card holds (few planes, short planes): each unit then
+// re-reads 2 of its input rows from L2 for every 2 rows - 2 it reads once.
+template <typename T, int kOut, int kPad, int kLoad>
+int launch_down2_strips(const void* x, void* y, long long planes, int H, int W, float gain, bool vec_store,
+                        cudaStream_t stream) {
+  const int Ho = H / 2 + kPad - 1, Wo = W / 2 + kPad - 1;
+  static pasta::ResidentWave wave;
+  const long long resident = wave.resident(down2_kernel<T, kOut, kPad, kLoad>, kDownThreads) * kDownThreads;
+  const long long per_row = planes * ((Wo + kOut - 1) / kOut);  // units of one output row each
+  int rows = kDownMaxRows;
+  while (rows > 1 && 2 * per_row * ((Ho + rows - 1) / rows) < resident) rows /= 2;
+  const long long units = per_row * ((Ho + rows - 1) / rows);
+  const long long grid =
+      wave.grid(down2_kernel<T, kOut, kPad, kLoad>, kDownThreads, (units + kDownThreads - 1) / kDownThreads);
+  down2_kernel<T, kOut, kPad, kLoad><<<(unsigned)grid, kDownThreads, 0, stream>>>((const T*)x, (T*)y, planes, H, W,
+                                                                                  rows, gain, vec_store);
+  return (int)cudaGetLastError();
 }
 
-dim3 grid_for(long long planes, int Ho, int Wo, int threads) {
-  const long long per_plane = (long long)((Wo + threads - 1) / threads) * Ho;
-  long long z = (8192 + per_plane - 1) / per_plane;
-  if (z > planes) z = planes;
-  if (z > 65535) z = 65535;
-  return dim3((Wo + threads - 1) / threads, Ho, (unsigned)z);
+template <typename T, int kOut, int kPad>
+int launch_down2_loads(const void* x, void* y, long long planes, int H, int W, float gain, cudaStream_t stream) {
+  const int Wo = W / 2 + kPad - 1;
+  const std::uintptr_t xa = reinterpret_cast<std::uintptr_t>(x);
+  const std::uintptr_t vbytes = kOut * sizeof(T) < 16 ? kOut * sizeof(T) : 16;
+  const bool vec_store = reinterpret_cast<std::uintptr_t>(y) % vbytes == 0 && (Wo * sizeof(T)) % vbytes == 0;
+  if (xa % 16 == 0 && (W * sizeof(T)) % 16 == 0)
+    return launch_down2_strips<T, kOut, kPad, kVec16>(x, y, planes, H, W, gain, vec_store, stream);
+  if (xa % (2 * sizeof(T)) == 0)
+    return launch_down2_strips<T, kOut, kPad, kPairs>(x, y, planes, H, W, gain, vec_store, stream);
+  return launch_down2_strips<T, kOut, kPad, kElems>(x, y, planes, H, W, gain, vec_store, stream);
+}
+
+template <typename T, int kPad>
+int launch_down2_per_output(const void* x, void* y, long long planes, int H, int W, float gain, cudaStream_t stream) {
+  const long long total = planes * (H / 2 + kPad - 1) * (W / 2 + kPad - 1);
+  static pasta::ResidentWave wave;
+  const long long grid = wave.grid(down2_per_output_kernel<T, kPad>, kDownOutThreads,
+                                   (total + kDownOutThreads - 1) / kDownOutThreads);
+  down2_per_output_kernel<T, kPad><<<(unsigned)grid, kDownOutThreads, 0, stream>>>((const T*)x, (T*)y, H, W, total,
+                                                                                  gain);
+  return (int)cudaGetLastError();
+}
+
+// Strips of 8 outputs (4 on rows of 4 to 7), unless they would be fewer than
+// a quarter of the threads the card holds even one output row a unit (the
+// fp32 image pyramid's [32,3,r,r] for r <= 64: 2-3 waves of a few hundred
+// blocks, where a strip's rows in sequence cost more than they save).
+template <typename T, int kPad>
+int launch_down2(const void* x, void* y, long long planes, int H, int W, float gain, cudaStream_t stream) {
+  const int Ho = H / 2 + kPad - 1, Wo = W / 2 + kPad - 1;
+  if (planes <= 0 || Ho <= 0 || Wo <= 0) return (int)cudaGetLastError();
+  const int strip = Wo >= 8 ? 8 : 4;
+  static pasta::ResidentWave wave;  // threads the card holds of the strip kernel
+  const long long resident = wave.resident(down2_kernel<T, 8, kPad, kVec16>, kDownThreads) * kDownThreads;
+  if (Wo < 4 || 4 * planes * ((Wo + strip - 1) / strip) * Ho < resident)
+    return launch_down2_per_output<T, kPad>(x, y, planes, H, W, gain, stream);
+  if (Wo >= 8) return launch_down2_loads<T, 8, kPad>(x, y, planes, H, W, gain, stream);
+  return launch_down2_loads<T, 4, kPad>(x, y, planes, H, W, gain, stream);
 }
 
 }  // namespace
@@ -445,15 +676,10 @@ extern "C" int pasta_up2(const void* x, void* y, int bf16, long long planes, int
 // x: [planes, H, W] with H, W even; y: [planes, H/2 + pad - 1, W/2 + pad - 1].
 extern "C" int pasta_down2(const void* x, void* y, int bf16, long long planes, int H, int W, int pad,
                            float gain, void* stream) {
-  const int Ho = H / 2 + pad - 1, Wo = W / 2 + pad - 1;
-  const int threads = threads_for(Wo);
-  const dim3 grid = grid_for(planes, Ho, Wo, threads);
   const cudaStream_t s = (cudaStream_t)stream;
   if (bf16) {
-    down2_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>((const __nv_bfloat16*)x, (__nv_bfloat16*)y, planes,
-                                                         H, W, pad, gain);
-  } else {
-    down2_kernel<float><<<grid, threads, 0, s>>>((const float*)x, (float*)y, planes, H, W, pad, gain);
+    return pad ? launch_down2<__nv_bfloat16, 1>(x, y, planes, H, W, gain, s)
+               : launch_down2<__nv_bfloat16, 0>(x, y, planes, H, W, gain, s);
   }
-  return (int)cudaGetLastError();
+  return pad ? launch_down2<float, 1>(x, y, planes, H, W, gain, s) : launch_down2<float, 0>(x, y, planes, H, W, gain, s);
 }

@@ -11,6 +11,9 @@
   is the first pass of the separate-pass denorm route, `composite_reference`
   with `warp=denorm_warp`, which the routes take with `denorm="separate"`.
 
+`composite_live_tiles` is the composite kernel's exact skip test in
+PyTorch: which (part, strip) pairs it computes.
+
 Each wrapper runs its plain version for tensors on the CPU, and for CUDA
 tensors launches its kernel or raises; there is no fallback.  The plain
 versions (`norm_warp_reference`, `composite_reference`,
@@ -216,6 +219,55 @@ def composite_reference(srcs, minv, valid, out_hw, groups, erode_parts, hand_par
     hands = [sat[:, p] * vmask[:, p] for p in hand_parts]
     hands = torch.stack(hands, dim=1) if hands else srcs.new_zeros((B, 0, H, W))
     return torch.stack(acc, dim=1), hands
+
+
+# The composite kernel's unit of skipping: each warp's strip of 2 rows x 32
+# columns of a 32x32 output tile (csrc/composite.cu: ROWS x TILE).
+COMPOSITE_STRIP = (2, 32)
+
+
+def composite_live_tiles(minv, valid, out_hw, patch_hw) -> torch.Tensor:
+    """[B, N, ceil(H / th), ceil(W / tw)] bool, (th, tw) = COMPOSITE_STRIP: the
+    (part, strip) pairs the `composite` kernel computes; it skips the others,
+    whose strip no pixel of the part's sample reaches.
+
+    The kernel's test (`corner_terms`, `misses_support`), operation for
+    operation in fp32: the tile's corner pixels go through the frame->patch
+    homography; a tile is skipped only when the terms are finite, the
+    denominator keeps one sign well away from 0 at all four corners (so the
+    tile's image is the convex quad of the corner images) and all four
+    corner images lie beyond one edge of the support (-1, Ws) x (-1, Hs) by
+    more than a bound on the rounding of these and the kernel's per-pixel
+    coordinates.  An invalid part is live nowhere."""
+    B, N = minv.shape[:2]
+    H, W = out_hw
+    Hs, Ws = patch_hw
+    m = minv.reshape(B, N, 9).float()[:, :, :, None, None, None]  # [B, N, 9, 1, 1, 1]
+    th, tw = COMPOSITE_STRIP
+    x0 = torch.arange(0, W, tw, device=minv.device)
+    y0 = torch.arange(0, H, th, device=minv.device)
+    x1 = torch.clamp(x0 + tw, max=W) - 1
+    y1 = torch.clamp(y0 + th, max=H) - 1
+    # corner c = (c & 1 ? x1 : x0, c & 2 ? y1 : y0): [ty, tx, 4]
+    X = torch.stack([x0, x1, x0, x1], -1).float()[None, :, :].expand(len(y0), len(x0), 4)
+    Y = torch.stack([y0, y0, y1, y1], -1).float()[:, None, :].expand(len(y0), len(x0), 4)
+    p0, p1, p3, p4, p6, p7 = m[:, :, 0] * X, m[:, :, 1] * Y, m[:, :, 3] * X, m[:, :, 4] * Y, m[:, :, 6] * X, m[:, :, 7] * Y
+    nx = p0 + p1 + m[:, :, 2]
+    ny = p3 + p4 + m[:, :, 5]
+    d = p6 + p7 + m[:, :, 8]
+    sx, sy = nx / d, ny / d
+    a = (p0.abs() + p1.abs() + m[:, :, 2].abs()).amax(-1)
+    b = (p3.abs() + p4.abs() + m[:, :, 5].abs()).amax(-1)
+    e = (p6.abs() + p7.abs() + m[:, :, 8].abs()).amax(-1)
+    d_min = d.abs().amin(-1)
+    sx_abs, sy_abs = sx.abs().amax(-1), sy.abs().amax(-1)
+    ku, big = 2.0 ** -16, 3.4e38
+    ok = (a <= big) & (b <= big) & (e <= big) & ((d > 0).all(-1) | (d < 0).all(-1)) & (d_min > 1e-6 + ku * e)
+    mx = ku * ((a + sx_abs * e) / d_min + sx_abs) + 1e-5
+    my = ku * ((b + sy_abs * e) / d_min + sy_abs) + 1e-5
+    miss = ok & ((sx.amax(-1) <= -1.0 - mx) | (sx.amin(-1) >= Ws + mx)
+                 | (sy.amax(-1) <= -1.0 - my) | (sy.amin(-1) >= Hs + my))
+    return (valid != 0)[:, :, None, None] & ~miss
 
 
 def composite(srcs, minv, valid, out_hw, groups, erode_parts, hand_parts):

@@ -25,7 +25,13 @@ card); bf16 within 2 ulp (relative 2^-7) of the plain version.
 The cases of the index paths that denorm_warp's and up2's vector stores and
 paired loads add (ragged rows, one part, an invalid sample; ragged flat
 ends, narrow rows, inputs at an odd element offset) are held to the bit in
-fp32: rtol 0, atol 0.
+fp32: rtol 0, atol 0.  So are down2's strip and per-output paths (rows of
+2W + 2, output rows of 1 to 8, ragged strips and row chunks, odd offsets;
+fp32 and bf16) and composite's skipped (part, strip) pairs (small quads,
+support edges within a pixel of a strip, eroded parts seen only through
+the halo, skipped hand parts, a part far off the frame and a horizon).  On
+the CPU, `composite_live_tiles` (the skip test's plain version) is checked
+to keep every pixel whose coordinates fall inside a part's support.
 """
 
 import os
@@ -351,6 +357,81 @@ def test_up2_kernel_flat_chunks_and_unaligned_inputs(cuda_device, case, extend, 
         _fir_close(y, ref, dtype)
 
 
+# down2 streams strips of 8 outputs (4 on rows of 4 to 7) over up to 16
+# output rows with 16-byte, pair or element loads by the alignment of the rows
+# and the pointer: rows of 2W + 2 (the pad-0 adjoint's, 4-byte aligned in
+# bf16), output rows of 1, 2, 4 and 8, a ragged last strip and row chunk, and
+# an input at an odd element offset.  Launches with fewer strip units than a
+# quarter of the threads the card holds (and rows of 1 or 2) take one thread
+# per output instead: each case runs with its few planes (that path) and with
+# enough planes for the strips on any card of up to 132 SMs x 2048 threads.
+STRIP_UNITS = 132 * 2048 // 4
+
+
+def _many_planes(shape, pad):
+    """`shape` with its channels raised until the strip kernel takes it."""
+    N, C, H, W = shape
+    Ho, Wo = H // 2 + pad - 1, W // 2 + pad - 1
+    per_plane = Ho * -(-Wo // (8 if Wo >= 8 else 4))
+    return (N, max(C, -(-STRIP_UNITS // (N * per_plane))), H, W)
+
+
+DOWN2_CASES = [
+    ("2W+2 rows", 0, (2, 3, 10, 18)),
+    ("2W+2 rows", 1, (2, 3, 10, 18)),  # output rows of 9: a ragged last strip
+    ("2W+2 rows", 0, (1, 2, 34, 34)),
+    ("rows of 1", 1, (2, 3, 2, 2)),
+    ("rows of 1", 0, (2, 3, 4, 4)),
+    ("rows of 2", 1, (2, 3, 4, 4)),
+    ("rows of 2", 0, (2, 3, 6, 6)),
+    ("rows of 4", 1, (2, 5, 8, 8)),
+    ("rows of 4", 0, (2, 5, 10, 10)),
+    ("rows of 8", 1, (2, 3, 16, 16)),
+    ("rows of 8", 0, (2, 3, 18, 18)),
+    ("ragged flat end", 1, (1, 3, 6, 22)),
+    ("ragged flat end", 0, (1, 3, 38, 24)),  # 18 output rows: a short last chunk
+    ("odd offset", 1, (2, 4, 16, 16)),
+    ("odd offset", 0, (2, 4, 18, 18)),
+    ("odd offset", 1, (1, 2, 8, 10)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case,pad,shape,planes", [
+    (case, pad, shape, planes) for case, pad, shape in DOWN2_CASES for planes in ("few", "many")
+    if planes == "few" or shape[3] // 2 + pad - 1 >= 4  # rows of 1 or 2 outputs: one thread per output always
+])
+def test_down2_kernel_strips_and_unaligned_inputs_bit_exact(cuda_device, case, pad, shape, dtype, planes):
+    if planes == "many":
+        shape = _many_planes(shape, pad)
+    x = _fir_input(11, shape, dtype, cuda_device)
+    if case == "odd offset":
+        x = _odd_offset_view(x)
+    before = ck.DOWN2.launches
+    y = uk.down2(x, pad=pad)
+    torch.cuda.synchronize()
+    assert ck.DOWN2.launches == before + 1
+    assert y.shape[2:] == (shape[2] // 2 + pad - 1, shape[3] // 2 + pad - 1)
+    torch.testing.assert_close(y, uk.down2_reference(x, pad), rtol=0, atol=0)
+
+
+# one plane large enough for the strips (544 output rows x 128 strips), with
+# a gain; and a wide row whose 20 output rows end in a short chunk
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad,shape,gain", [
+    (1, (1, 1, 1088, 2048), 4.0),
+    (0, (1, 1, 1090, 2050), 4.0),
+    (1, (4, 400, 40, 256), 1.0),
+])
+def test_down2_kernel_one_plane_and_wide_rows_bit_exact(cuda_device, pad, shape, gain, dtype):
+    x = _fir_input(12, shape, dtype, cuda_device)
+    y = uk.down2(x, pad=pad, gain=gain)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, uk.down2_reference(x, pad, gain), rtol=0, atol=0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("size", (4, 8, 64))
 def test_fir_kernels_adjoint_and_double_backward_on_card(cuda_device, size):
@@ -420,3 +501,134 @@ def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
     with open(tmp_path / "warp_math.cuh", "a") as f:
         f.write("// edited\n")
     assert ck.COMPOSITE.library_path() != before
+
+
+# ------------------------------------------------------- composite tile skipping
+
+def _affine_minv(ox, oy, s):
+    """frame -> patch map (x, y) -> ((x - ox) / s, (y - oy) / s): the part's
+    support (-1, Ws) in x is the frame interval (ox - s, ox + s Ws)."""
+    return np.array([[1 / s, 0, -ox / s], [0, 1 / s, -oy / s], [0, 0, 1]], np.float32)
+
+
+def _tile_case(case, seed=0, frame=256, patch=32):
+    """Composite operands on a 256x256 frame (32x32 tiles) where the kernel
+    skips (part, tile) pairs: (srcs, minv [B, N, 3, 3], valid, hw, groups,
+    erode_parts, hand_parts), numpy."""
+    rng = np.random.default_rng(seed)
+    B, N = 2, 5
+    srcs = rng.uniform(0, 1, (B, N, 4, patch, patch)).astype(np.float32)
+    srcs[:, :, 3] = (srcs[:, :, 3] > 0.25).astype(np.float32)
+    groups, erode, hands = (0, 0, 0, 1, 1), (True, True, False, False, True), (1, 3)
+    minv = np.zeros((B, N, 3, 3), np.float32)
+    valid = np.ones((B, N), np.float32)
+    if case in ("small quads", "hand skipped"):
+        # quads of 13-29 pixels (a 64-pixel frame's) placed at random in the 256 frame
+        for b in range(B):
+            M = _homographies(rng, N, 64, patch, to_patch=False)
+            for p in range(N):
+                T = np.array([[1, 0, rng.uniform(-20, 200)], [0, 1, rng.uniform(-20, 200)], [0, 0, 1]])
+                minv[b, p] = np.linalg.inv(T @ M[p]).astype(np.float32)
+        valid[1, 3] = 0.0  # an invalid hand part
+    elif case == "tile edges":
+        # support edges within a pixel of the tile edge x = 32 or y = 64 (s = 0.5:
+        # support (ox - 0.5, ox + 16)): right edge 32.25 / 31.75, left edge
+        # 30.9975 (pixel 31, the last of tile 0, samples at -0.995), bottom edge
+        # 64.1 / 63.9
+        offs = [(16.25, 100.0), (15.75, 130.0), (31.4975, 40.0), (150.0, 48.1), (180.0, 47.9)]
+        for b in range(B):
+            for p, (ox, oy) in enumerate(offs):
+                minv[b, p] = _affine_minv(ox + 64 * b, oy, 0.5)
+    elif case == "erosion halo":
+        # eroded parts whose support ends 1-2 pixels before a tile edge, so the
+        # next tile sees them only through its 2-pixel erosion halo
+        offs = [(15.75, 10.0), (200.0, 15.9), (79.0, 150.0), (120.0, 220.0), (40.5, 180.0)]
+        for b in range(B):
+            for p, (ox, oy) in enumerate(offs):
+                minv[b, p] = _affine_minv(ox, oy + 32 * b, 0.5)
+        srcs[:, :, 3] = 1.0  # saturated wherever the sample is inside
+        erode = (True, True, True, False, True)
+    elif case == "far and horizon":
+        d_srcs, M, valid4, _ = _denorm_inputs(seed, B=B, N=4, frame=frame, patch=patch)
+        srcs, valid = d_srcs, valid4
+        minv = inv3x3(torch.from_numpy(M)).numpy()
+        groups, erode, hands = (0, 1, 0, 1), (True, True, False, True), (1, 3)
+    else:
+        raise ValueError(case)
+    return srcs, minv, valid, (frame, frame), groups, erode, hands
+
+
+def _pixels_inside_support(minv, valid, hw, patch_hw):
+    """[B, N, H, W] bool: the pixels whose fp32 sample coordinates (the
+    kernel's) fall inside the support (-1, Ws) x (-1, Hs) of a valid part."""
+    from pasta_gan_tpu_torch.ops.warp_math import warp_coords
+
+    Hs, Ws = patch_hw
+    sx, sy = warp_coords(minv, hw)
+    return (valid != 0)[..., None, None] & (sx > -1) & (sx < Ws) & (sy > -1) & (sy < Hs)
+
+
+def _tile_map(live, hw, tile=wk.COMPOSITE_STRIP):
+    """[..., ty, tx] -> [..., H, W]: each pixel's strip's value."""
+    H, W = hw
+    return live.repeat_interleave(tile[0], -2).repeat_interleave(tile[1], -1)[..., :H, :W]
+
+
+@pytest.mark.parametrize("case", ["small quads", "tile edges", "erosion halo", "far and horizon", "random"])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_composite_live_tiles_keep_every_pixel_that_samples(case, seed):
+    """The skip test never drops a (part, strip) pair where a pixel of the
+    strip samples the part; and it does drop some."""
+    if case == "random":
+        srcs, M, valid, hw = _denorm_inputs(seed, B=4, N=6, frame=96, patch=16)
+        minv = inv3x3(torch.from_numpy(M))
+        # stretch some maps so that quads reach 10x beyond the frame or shrink to a pixel
+        scale = torch.from_numpy(np.random.default_rng(seed).uniform(0.1, 10, (4, 6))).float()
+        minv = (minv * torch.stack([scale, scale, torch.ones_like(scale)], -1)[..., None]).contiguous()
+        patch_hw = (16, 16)
+    else:
+        srcs, minv, valid, hw, *_ = _tile_case(case, seed)
+        minv = torch.from_numpy(minv)
+        patch_hw = srcs.shape[-2:]
+    valid = torch.from_numpy(valid)
+    live = wk.composite_live_tiles(minv, valid, hw, patch_hw)
+    th, tw = wk.COMPOSITE_STRIP
+    assert live.shape == minv.shape[:2] + (-(-hw[0] // th), -(-hw[1] // tw))
+    inside = _pixels_inside_support(minv, valid, hw, patch_hw)
+    assert not (inside & ~_tile_map(live, hw)).any(), "a skipped tile holds a pixel that samples the part"
+    assert not live.all(), "nothing skipped: the case tests nothing"
+
+
+def _composite_exact(args):
+    before = ck.COMPOSITE.launches
+    g, h = wk.composite(*args)
+    torch.cuda.synchronize()
+    assert ck.COMPOSITE.launches == before + 1
+    g_p, h_p = wk.composite_reference(*args)
+    torch.testing.assert_close(g, g_p, rtol=0, atol=0)
+    torch.testing.assert_close(h, h_p, rtol=0, atol=0)
+    return g, h
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["small quads", "tile edges", "erosion halo", "far and horizon"])
+def test_composite_kernel_skipped_tiles_bit_exact(cuda_device, case):
+    srcs, minv, valid, hw, groups, erode, hands = _tile_case(case)
+    args = (torch.from_numpy(srcs).to(cuda_device), torch.from_numpy(minv).to(cuda_device).contiguous(),
+            torch.from_numpy(valid).to(cuda_device), hw, groups, erode, hands)
+    live = wk.composite_live_tiles(args[1], args[2], hw, srcs.shape[-2:])
+    assert not live.all()
+    _composite_exact(args)
+
+
+@pytest.mark.cuda
+def test_composite_kernel_skipped_hand_part_writes_zero(cuda_device):
+    srcs, minv, valid, hw, groups, erode, hands = _tile_case("hand skipped", seed=4)
+    args = (torch.from_numpy(srcs).to(cuda_device), torch.from_numpy(minv).to(cuda_device).contiguous(),
+            torch.from_numpy(valid).to(cuda_device), hw, groups, erode, hands)
+    live = wk.composite_live_tiles(args[1], args[2], hw, srcs.shape[-2:])
+    hand_live = _tile_map(live[:, list(hands)], hw)  # [B, n_hands, H, W]
+    assert not hand_live.all() and hand_live.any()
+    _, h = _composite_exact(args)
+    assert not h[~hand_live].any(), "a skipped hand part must leave a zero mask"
+    assert not h[1, 1].any(), "an invalid hand part must leave a zero mask"
