@@ -9,7 +9,10 @@ Phases, each fatal on failure:
 2. Kernel phase.  The routing kernels at the try-on paths' batch-16 shapes
    (norm_warp and composite on the Full route; norm_warp at 8 channels,
    composite at the fused shape and denorm_warp, constant border, on the
-   released-256 route, plus a smaller replicate-border denorm_warp case) and
+   released-256 route, plus a smaller replicate-border denorm_warp case),
+   norm_warp also at the training step's batch 32 (self route) and the Full
+   route's batch 1, each norm_warp case bit-exact and beside a memset of
+   its output, and
    the FIR kernels at the training path's largest shapes (up2 pre-FIR
    [16,128,128,128], down2 [32,64,256,256]), up2 at the serving path's most
    launched up-conv shapes and D's backward, and down2 at every class of the
@@ -306,35 +309,28 @@ def composite_skip_share(wk, cargs):
     return 1.0 - float(live.float().sum()) / float(valid.sum() * live.shape[2] * live.shape[3])
 
 
-def kernel_phase(torch, wk, tag):
-    from pasta_gan_tpu_torch.data.dataset import SyntheticUvitonDataset, collate, tryon_warp_inputs
-    from pasta_gan_tpu_torch.ops import cuda_kernels as ck
+def norm_warp_case(torch, wk, ck, r, label, tag, plain_iters=20):
+    """norm_warp on one route's operands `r`: bit-exact against its plain
+    version, timed through its wrapper and through its C entry point beside a
+    memset of the same output and the `grid_sample` yardstick (one call per
+    source frame), with the byte bound of the source sectors its taps need.
+    Returns (result, the plain version's patches)."""
+    from pasta_gan_tpu_torch.ops.warp_math import warp_coords
 
     F = torch.nn.functional
-    B = 16
-    ds = SyntheticUvitonDataset(num_samples=B)
-    person = collate([ds[i] for i in range(B)])
-    garment = collate([ds[(i + 1) % B] for i in range(B)])
-    r = tryon_warp_inputs(person, garment, device="cuda")
-    results = {}
-
-    # ---- norm_warp
     args = (r["src_u"], r["src_l"], r["minv_norm"], r["valid_norm"], r["n_upper"], r["patch_hw"])
     assert bool(torch.isfinite(r["minv_norm"]).all()), "non-finite routing matrices"
     out_k = wk.norm_warp(*args)
     out_p = wk.norm_warp_reference(*args)
     torch.cuda.synchronize()
     err = float((out_k - out_p).abs().max())
-    assert err <= TOL, f"norm_warp disagrees with its plain version: {err}"
-    N = r["minv_norm"].shape[1]
-    h, w = r["patch_hw"]
+    assert err == 0, f"norm_warp ({label}) differs from its plain version: {err}"
+    B, N, C, h, w = out_k.shape
     H, W = r["src_u"].shape[1:3]
+    n0 = r["n_upper"]
     # grid_sample yardstick: one call per source frame, explicit pixel coordinates
-    from pasta_gan_tpu_torch.ops.warp_math import warp_coords
-
     sx, sy = warp_coords(r["minv_norm"], (h, w))  # [B, N, h, w]
     grid = torch.stack([sx / (W - 1) * 2 - 1, sy / (H - 1) * 2 - 1], dim=-1)
-    n0 = r["n_upper"]
     g_u = grid[:, :n0].reshape(B, n0 * h, w, 2).contiguous()
     g_l = grid[:, n0:].reshape(B, (N - n0) * h, w, 2).contiguous()
     nchw_u = r["src_u"].permute(0, 3, 1, 2).contiguous()
@@ -345,20 +341,50 @@ def kernel_phase(torch, wk, tag):
         F.grid_sample(nchw_l, g_l, mode="bilinear", padding_mode="border", align_corners=True)
 
     ref = F.grid_sample(nchw_u, g_u, mode="bilinear", padding_mode="border", align_corners=True)
-    lib_err = float((ref.reshape(B, 4, n0, h, w).transpose(1, 2) * r["valid_norm"][:, :n0, None, None, None]
+    lib_err = float((ref.reshape(B, C, n0, h, w).transpose(1, 2) * r["valid_norm"][:, :n0, None, None, None]
                      - out_p[:, :n0]).abs().max())
+    del ref, grid
     src_bytes = norm_source_bytes(torch, r)
-    byts = src_bytes + nbytes(r["minv_norm"], r["valid_norm"], out_k)
-    ops = B * N * h * w * 52  # ~12 flops of coordinates + 4 channels x 9 of blend + gate
     launch, out_e = norm_warp_entry(torch, ck, args)
     et = entry_times(torch, launch, (out_e,), (out_k,))
-    results["norm_warp"] = dict(
-        err=err, **kernel_times(torch, lambda: wk.norm_warp(*args), lambda: wk.norm_warp_reference(*args), library),
-        **et, bytes=byts, ops=ops,
-        extra=(f"entry ms {et['entry_ms']:.4f} (median {et['entry_median']:.4f}); source sectors read "
-               f"{src_bytes / 1e6:.2f} of {nbytes(r['src_u'], r['src_l']) / 1e6:.2f} MB; "
-               f"grid_sample max |diff| vs plain {lib_err:.3g}"),
+    memset, memset_median = cuda_time_ms(torch, out_e.zero_)
+    res = dict(
+        err=err, **kernel_times(torch, lambda: wk.norm_warp(*args), lambda: wk.norm_warp_reference(*args), library,
+                                plain_iters=plain_iters),
+        **et, bytes=src_bytes + nbytes(r["minv_norm"], r["valid_norm"], out_k),
+        ops=B * N * h * w * (12 + 10 * C),  # ~12 flops of coordinates + C channels x 9 of blend + gate
+        extra=(f"entry ms {et['entry_ms']:.4f} (median {et['entry_median']:.4f}); memset of the output "
+               f"{memset:.4f} (median {memset_median:.4f}); source sectors read {src_bytes / 1e6:.2f} of "
+               f"{nbytes(r['src_u'], r['src_l']) / 1e6:.2f} MB; grid_sample max |diff| vs plain {lib_err:.3g}"),
     )
+    report_kernel(f"norm_warp({label}, {list(out_k.shape)})", res, tag)
+    return res, out_p
+
+
+def kernel_phase(torch, wk, tag):
+    from pasta_gan_tpu_torch.data.dataset import SyntheticUvitonDataset, collate, tryon_warp_inputs
+    from pasta_gan_tpu_torch.data.warp import self_warp_inputs
+    from pasta_gan_tpu_torch.ops import cuda_kernels as ck
+
+    B = 16
+    ds = SyntheticUvitonDataset(num_samples=B)
+    person = collate([ds[i] for i in range(B)])
+    garment = collate([ds[(i + 1) % B] for i in range(B)])
+    r = tryon_warp_inputs(person, garment, device="cuda")
+    results = {}
+
+    # ---- norm_warp at the Full route's batch 16, the training step's batch 32
+    # (self route, as prepare_train_batch feeds it) and the Full route's batch 1
+    results["norm_warp"], out_p = norm_warp_case(torch, wk, ck, r, "Full b16", tag)
+    train = collate([SyntheticUvitonDataset(num_samples=64, seed=0)[i] for i in range(32)])
+    image = torch.as_tensor(train["image"], device="cuda").float() / 255.0
+    um, lm = (torch.as_tensor(train[k], device="cuda").float() for k in ("upper_mask", "lower_mask"))
+    norm_warp_case(torch, wk, ck, self_warp_inputs(image * um, image * lm, um, lm,
+                                                   torch.as_tensor(train["keypoints"], device="cuda").float()),
+                   "training b32", tag, plain_iters=5)
+    del train, image, um, lm
+    norm_warp_case(torch, wk, ck, tryon_warp_inputs(collate([ds[0]]), collate([ds[1]]), device="cuda"), "Full b1", tag)
+    N = r["minv_norm"].shape[1]
 
     # ---- composite (fed the plain norm output, so both sides see the same patches)
     cargs = (out_p, r["minv_denorm"], r["valid_denorm"], r["frame_hw"], r["groups"],
@@ -393,8 +419,7 @@ def kernel_phase(torch, wk, tag):
                f"{patch_bytes / 1e6:.2f} of {nbytes(out_p) / 1e6:.2f} MB; {n_excl} near-threshold pixels not "
                f"compared; {composite_skip_share(wk, cargs):.3f} of the valid (part, strip) pairs skipped"),
     )
-    for name, res in results.items():
-        report_kernel(name, res, tag)
+    report_kernel("composite", results["composite"], tag)
     return results
 
 
@@ -416,20 +441,7 @@ def v18_kernel_phase(torch, wk, tag):
     assert bool(torch.isfinite(r["minv_norm"]).all()) and bool(torch.isfinite(r["minv_denorm"]).all())
 
     # ---- norm_warp at C = 8 (image, mask, stickman, pad)
-    args = (r["src_u"], r["src_l"], r["minv_norm"], r["valid_norm"], r["n_upper"], r["patch_hw"])
-    out_k = wk.norm_warp(*args)
-    out_p = wk.norm_warp_reference(*args)
-    torch.cuda.synchronize()
-    err = float((out_k - out_p).abs().max())
-    assert err <= TOL, f"norm_warp (C = 8) disagrees with its plain version: {err}"
-    _, N, C, h, w = out_k.shape
-    src_bytes = norm_source_bytes(torch, r)
-    res = dict(err=err, **kernel_times(torch, lambda: wk.norm_warp(*args), lambda: wk.norm_warp_reference(*args),
-                                       plain_iters=5),
-               bytes=src_bytes + nbytes(r["minv_norm"], r["valid_norm"], out_k), ops=B * N * h * w * (12 + C * 10),
-               extra=(f"source sectors read {src_bytes / 1e6:.2f} of {nbytes(r['src_u'], r['src_l']) / 1e6:.2f} MB; "
-                      "the released-256 route's 8-channel frames"))
-    report_kernel(f"norm_warp(C=8, {list(out_k.shape)})", res, tag)
+    _, out_p = norm_warp_case(torch, wk, ck, r, "V18 b16, C=8", tag, plain_iters=5)
 
     # ---- composite at the fused route's shape (10 parts, 2 groups, no hands)
     srcs = out_p[:, :, 0:4].contiguous()

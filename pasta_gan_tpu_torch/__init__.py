@@ -2,7 +2,7 @@
 
 The JAX package beside this one is the reference; every module here keeps its
 counterpart's module path and its public NHWC layouts, so tests feed the same
-numpy inputs to both.  The two patch-routing kernels and the two 2x FIR
+numpy inputs to both.  The three patch-routing kernels and the two 2x FIR
 resampling kernels are hand-written CUDA (`csrc/`, declared, built and
 counted in `ops/cuda_kernels.py`, bound in `ops/warp_kernels.py` and
 `ops/upfirdn_kernels.py`).

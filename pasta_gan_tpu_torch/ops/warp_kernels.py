@@ -91,9 +91,10 @@ def norm_warp(src0, src1, minv, valid, n0: int, out_hw) -> torch.Tensor:
     dev = src0.device
     if C not in (4, 8):
         raise ValueError(f"norm_warp needs 4- or 8-channel frames, got {C}")
-    _check_grid(B, N)
     check_tensor(src0, "src0", (B, H, W, C), dev)
     check_tensor(src1, "src1", (B, H, W, C), dev)
+    if src0.data_ptr() % 16 or src1.data_ptr() % 16:
+        raise ValueError("norm_warp reads each pixel's channels as 16-byte vectors: src0 and src1 must be 16-byte aligned")
     check_tensor(minv, "minv", (B, N, 3, 3), dev)
     check_tensor(valid, "valid", (B, N), dev)
     out = torch.empty((B, N, C, h, w), dtype=torch.float32, device=dev)
@@ -102,12 +103,6 @@ def norm_warp(src0, src1, minv, valid, n0: int, out_hw) -> torch.Tensor:
         B, N, n0, H, W, h, w, C, stream_of(dev),
     )
     return out
-
-
-def _check_grid(B: int, N: int) -> None:
-    """norm_warp puts one (sample, part) on each grid row."""
-    if B * N > 65535:
-        raise ValueError(f"{B} samples x {N} parts exceed the 65535 grid rows of one launch")
 
 
 # ------------------------------------------------------------------- denorm

@@ -15,8 +15,10 @@ Routing tolerance atol 5e-5.  The composite inputs are seeds whose mask values k
 farther than 1e-5 from 254.5/255 (tests/test_torch_routing.py asserts it),
 so every pixel is compared.  denorm_warp and norm_warp repeat their plain
 versions' rounded operations in order, so on the card they agree to the bit
-(chip_smoke.py prints the error); the tests hold them to the routing
-tolerance.
+(chip_smoke.py prints the error); the first denorm_warp test holds it to the
+routing tolerance, and every norm_warp test holds it to the bit (rtol 0,
+atol 0): ragged rows and planes, an output at an odd element offset, all
+parts from one source, one part, an invalid sample, and 65 537 planes.
 
 FIR tolerances: fp32 atol 1e-6 (the kernels repeat the plain version's
 rounded products and sums in its order, so they agree to the bit on the
@@ -134,15 +136,80 @@ def _composite_args(seed, device, hw=None):
             torch.from_numpy(valid).to(device), hw or frame_hw, GROUPS, ERODE, HANDS)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("seed,C", [(0, 4), (1, 4), (0, 8)])
-def test_norm_warp_kernel_matches_plain(cuda_device, seed, C):
-    args = _norm_args(seed, cuda_device, C)
+def _norm_exact(args):
     before = ck.NORM_WARP.launches
     out = wk.norm_warp(*args)
     torch.cuda.synchronize()
     assert ck.NORM_WARP.launches == before + 1
-    np.testing.assert_allclose(out.cpu().numpy(), wk.norm_warp_reference(*args).cpu().numpy(), atol=TOL)
+    torch.testing.assert_close(out, wk.norm_warp_reference(*args), rtol=0, atol=0)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,C", [(0, 4), (1, 4), (0, 8)])
+def test_norm_warp_kernel_matches_plain(cuda_device, seed, C):
+    _norm_exact(_norm_args(seed, cuda_device, C))
+
+
+# (16, 13): rows not a multiple of 4 but a plane that is, so the 16-byte
+# stores cross rows; (7, 6) and (5, 1): planes that are not, the scalar-store
+# path; every shape ends in a partial unit of 32 * kPass pixels
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [4, 8])
+@pytest.mark.parametrize("hw", [(16, 13), (7, 6), (5, 1), (64, 64)])
+def test_norm_warp_kernel_ragged_rows_bit_exact(cuda_device, hw, C):
+    src0, src1, minv, valid, n0, _ = _norm_args(4, cuda_device, C)
+    args = (src0, src1, minv, valid, n0, hw)
+    out = _norm_exact(args)
+    # the same launch into an output at an odd element offset (not 16-byte
+    # aligned): the scalar-store path at every shape
+    buf = torch.full((out.numel() + 1,), float("nan"), device=cuda_device)
+    odd = buf[1:].view(out.shape)
+    B, H, W, _ = src0.shape
+    before = ck.NORM_WARP.launches
+    ck.NORM_WARP.launch(src0.data_ptr(), src1.data_ptr(), minv.data_ptr(), valid.data_ptr(), odd.data_ptr(),
+                        B, minv.shape[1], n0, H, W, hw[0], hw[1], C, ck.stream_of(src0.device))
+    torch.cuda.synchronize()
+    assert ck.NORM_WARP.launches == before + 1
+    torch.testing.assert_close(odd, out, rtol=0, atol=0)
+    assert bool(buf[0].isnan()), "the kernel wrote before its output"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [4, 8])
+@pytest.mark.parametrize("case", ["n0=0", "n0=N", "N=1", "invalid sample"])
+def test_norm_warp_kernel_part_split_and_invalid_bit_exact(cuda_device, case, C):
+    src0, src1, minv, valid, n0, hw = _norm_args(5, cuda_device, C)
+    N = minv.shape[1]
+    if case == "n0=0":
+        n0 = 0
+    elif case == "n0=N":
+        n0 = N
+    elif case == "N=1":
+        minv, valid = minv[:, 3:4].contiguous(), valid[:, 3:4].contiguous()
+    else:
+        valid = valid.clone()
+        valid[1] = 0.0
+    out = _norm_exact((src0, src1, minv, valid, n0, hw))
+    if case == "invalid sample":
+        assert not out[1].any(), "an invalid sample must give all-zero patches"
+
+
+@pytest.mark.cuda
+def test_norm_warp_kernel_many_planes(cuda_device):
+    """65 537 (sample, part) planes of 2x2 pixels from 2x2 frames: more planes
+    than one grid dimension of 65 535 blocks would hold."""
+    rng = np.random.default_rng(6)
+    B, N, C = 65537, 1, 4
+    src = rng.uniform(0, 1, (2, B, 2, 2, C)).astype(np.float32)
+    minv = np.tile(np.eye(3, dtype=np.float32), (B, N, 1, 1))
+    minv[..., :2, :] += rng.uniform(-0.7, 0.7, (B, N, 2, 3)).astype(np.float32)
+    minv[..., 2, :2] = rng.uniform(-0.05, 0.05, (B, N, 2)).astype(np.float32)
+    valid = (rng.uniform(size=(B, N)) > 0.1).astype(np.float32)
+    args = (torch.from_numpy(src[0]).to(cuda_device), torch.from_numpy(src[1]).to(cuda_device),
+            torch.from_numpy(minv).to(cuda_device), torch.from_numpy(valid).to(cuda_device), 0, (2, 2))
+    _norm_exact(args)
+    _norm_exact(args[:4] + (1, (2, 2)))  # every part from src0
 
 
 # (64, 64): whole 32x32 tiles; (72, 40): ragged tiles on both axes, so the

@@ -127,6 +127,26 @@ def test_norm_warp_reference_matches_jax_gather_and_pallas(seed):
                                    atol=TOL)
 
 
+# ragged patch widths (planes whose pixel count is or is not a multiple of 4)
+# and every part from one source: the shapes the card tests hold the kernel
+# to its plain version at
+@pytest.mark.parametrize("C", [4, 8])
+@pytest.mark.parametrize("hw,n0", [((16, 13), 3), ((7, 6), 0), ((5, 1), 5), ((16, 16), 0), ((16, 16), 5)])
+def test_norm_warp_reference_matches_jax_at_ragged_patches_and_part_splits(hw, n0, C):
+    src, M, valid, _, _ = _norm_inputs(4, C=C)
+    B, N = M.shape[:2]
+    ours = wk.norm_warp(torch.from_numpy(src[0]), torch.from_numpy(src[1]), inv3x3(torch.from_numpy(M)),
+                        torch.from_numpy(valid), n0, hw)
+    assert tuple(ours.shape) == (B, N, C) + hw
+    for b in range(B):
+        for s, parts in ((0, slice(0, n0)), (1, slice(n0, N))):
+            if parts.start == parts.stop:
+                continue
+            ref = np.asarray(jw._warp_parts_gather(jnp.asarray(src[s, b]), jnp.asarray(M[b, parts]), hw, "replicate"))
+            np.testing.assert_allclose(ours[b, parts].numpy(),
+                                       ref.transpose(0, 3, 1, 2) * valid[b, parts, None, None, None], atol=TOL)
+
+
 def test_norm_warp_reference_8_channels_matches_jax_warp_perspective():
     """The released-256 route's 8-channel frames (image, mask, stickman, pad)
     against the JAX package's vmapped gather, `route_patches_v19_single`'s
