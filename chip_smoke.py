@@ -44,9 +44,19 @@ Phases, each fatal on failure:
    VGG19) for 4 steps at batch 32 in bf16, R1 on the first, on 64 synthetic
    samples; losses must be finite, G, D and G_ema must move.  It prints the
    Gmain+Dmain and R1 step times, sec/kimg, peak memory and a
-   `torch.profiler` breakdown of one step.  Then one fp32 training step
-   (Gmain, Dmain, R1) at a thin width is held against the same step on the
-   port's CPU path.
+   `torch.profiler` breakdown of one step.
+6. ADA training phase (`training_ada`): the same run with `--aug ada --p 0.5`
+   (the `bgc` pipe, the two-pass warp, stacked D calls, R1 through the
+   pipe); besides the checks of phase 5, `Progress/augment_p` must follow
+   the controller's arithmetic.  It prints the same times and profile, the
+   pipe's own time per call (Dmain's 96 stacked images forward, Gmain's 64
+   forward and backward, R1's 32), and then runs three steps with
+   `--ada_exact_geom` (D calls one by one), printing their time and peak
+   memory, or that they do not fit.
+7. Card against CPU: one fp32 training step (Gmain, Dmain, R1) at a thin
+   width is held against the same step on the port's CPU path, without ADA,
+   with the debug-percentile `bgc` pipe and with random draws (the pipe
+   draws on the host, so one seed gives both sides the same draws).
 Each path's launch counts are set to 0 just before it runs and read just
 after; each path must launch exactly its kernels (`PATH_KERNELS`).  The
 training phase also counts down2's launches by (pad, dtype, input shape) in
@@ -73,6 +83,7 @@ NEAR = 1e-5  # pixels whose plain mask value lies this close to the threshold ar
 FIR_F32_TOL = 1e-6  # the FIR kernels repeat the plain version's rounded operations in its order
 BF16_REL = 2.0 ** -7  # 2 ulp of bf16
 TRAIN_STEPS, TRAIN_BATCH = 4, 32
+ADA_P = 0.5  # the training_ada path's initial augment probability: about half the draws transform
 # card vs CPU training step (tests/test_torch_train.py's tolerances)
 LOSS_RTOL, GRAD_REL_L2, STEP_REL_L2 = 1e-4, 1e-3, 1e-2
 REPLACES = {"norm_warp": "pasta_gan_tpu/ops/pallas_warp.py:172",
@@ -88,7 +99,8 @@ BF16_REL_L2 = 0.1
 # the kernels each driven path launches (and no other)
 FUSED = {"norm_warp", "composite", "up2", "down2"}
 PATH_KERNELS = {"serving_full": FUSED, "serving_v18_fused": FUSED,
-                "serving_v18_separate": {"norm_warp", "denorm_warp", "up2", "down2"}, "training": FUSED}
+                "serving_v18_separate": {"norm_warp", "denorm_warp", "up2", "down2"}, "training": FUSED,
+                "training_ada": FUSED}
 
 
 def card_tag():
@@ -879,11 +891,12 @@ def device_profile(torch, fn, iters=5, top=8):
     return (device_ms or None), n_ops, [(op, us / 1e3 / iters, n / iters) for op, (us, n) in ranked]
 
 
-def train_phase(torch, ck, tag, tmp):
-    """cli.train at full width: TRAIN_STEPS steps at batch TRAIN_BATCH, bf16,
-    R1 on the first.  Returns the kernels' launch counts of that run."""
+def run_cli_train(torch, ck, tag, tmp, path, argv):
+    """cli.train at full width: TRAIN_STEPS steps at batch TRAIN_BATCH, bf16, R1
+    on the first, 64 synthetic samples, extra flags `argv`.  Checks what every
+    training path must give (finite stats, G, D and G_ema moved, exactly the
+    kernels of PATH_KERNELS[path]) and returns (cli output, launches)."""
     from pasta_gan_tpu_torch.cli import train as cli_train
-    from pasta_gan_tpu_torch.data.dataset import SyntheticUvitonDataset, collate, prepare_train_batch
 
     # cuDNN's fp32 convolutions (the VGG19 features, D's epilogue) run as a
     # user of cli.train gets them: TF32, PyTorch's default
@@ -892,33 +905,37 @@ def train_phase(torch, ck, tag, tmp):
     ck.reset_launch_counts()
     t0 = time.perf_counter()
     out = cli_train.main(["--outdir", os.path.join(tmp, "runs"), "--synthetic", "64", "--batch", str(TRAIN_BATCH),
-                          "--aug", "noaug", "--dtype", "bfloat16", "--seed", "0",
-                          "--kimg", str(TRAIN_STEPS * TRAIN_BATCH / 1000)])
+                          "--dtype", "bfloat16", "--seed", "0", "--kimg", str(TRAIN_STEPS * TRAIN_BATCH / 1000),
+                          *argv])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = ck.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     trainer, state, records = out["trainer"], out["state"], out["records"]
-    print(f"cli.train: {state.step} steps at batch {TRAIN_BATCH} in {wall_s:.1f} s (includes drawing 64 "
-          f"synthetic samples on the host); launches {launches}; peak {peak_gb:.2f} GB allocated [{tag}]", flush=True)
+    print(f"cli.train {' '.join(argv)}: {state.step} steps at batch {TRAIN_BATCH} in {wall_s:.1f} s (includes "
+          f"drawing 64 synthetic samples on the host); launches {launches}; peak {peak_gb:.2f} GB allocated [{tag}]",
+          flush=True)
     assert state.step == TRAIN_STEPS and len(records) == TRAIN_STEPS
     assert "Loss/r1_penalty" in records[0], "R1 did not run on the first step"
     for r in records:
         bad = {k: v for k, v in r.items() if not math.isfinite(v)}
         assert not bad, f"non-finite training stats: {bad}"
     ran = {name for name, n in launches.items() if n > 0}
-    expected = PATH_KERNELS["training"]
-    assert ran == expected, f"training launched {sorted(ran)}, expected {sorted(expected)}"
+    expected = PATH_KERNELS[path]
+    assert ran == expected, f"{path} launched {sorted(ran)}, expected {sorted(expected)}"
     init = trainer.init_state(torch.Generator().manual_seed(0))  # what the run started from
     moved = {name: any(not torch.equal(a, b) for a, b in zip(getattr(state, name).parameters(), ref.parameters()))
              for name, ref in (("G", init.G), ("D", init.D), ("G_ema", init.G))}
     assert all(moved.values()), f"parameters did not move: {moved}"
-    del init
+    return out, launches
 
+
+def step_times(torch, out, batch, tag, label):
+    """Median host ms of Gmain+Dmain (cli.train's steps 2-4) and of 3 R1 steps,
+    and sec/kimg from them; printed, returned as (main, r1) ms."""
+    trainer, state, records = out["trainer"], out["state"], out["records"]
     main_ms = [r["Timing/Gmain_Dmain"] * 1e3 for r in records[1:]]
     data_ms = [r["Timing/data"] * 1e3 for r in records[1:]]
-    ds = SyntheticUvitonDataset(num_samples=64, seed=0)
-    batch = prepare_train_batch(collate([ds[i] for i in range(TRAIN_BATCH)]), torch.Generator().manual_seed(1))
     r1_ms = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -928,36 +945,152 @@ def train_phase(torch, ck, tag, tmp):
         r1_ms.append((time.perf_counter() - t1) * 1e3)
     med = statistics.median
     step_ms = med(data_ms) + med(main_ms) + med(r1_ms) / (trainer.config.d_reg_interval or 1)
-    print(f"training step (full width, batch {TRAIN_BATCH}, bf16): Gmain+Dmain median {med(main_ms):.1f} ms "
+    print(f"{label} step (full width, batch {TRAIN_BATCH}, bf16): Gmain+Dmain median {med(main_ms):.1f} ms "
           f"(steps 2-{TRAIN_STEPS}: {', '.join(f'{t:.1f}' for t in main_ms)}; step 1 with R1 and warm-up "
           f"{records[0]['Timing/Gmain_Dmain'] * 1e3:.1f} ms); R1 median {med(r1_ms):.1f} ms "
           f"({', '.join(f'{t:.1f}' for t in r1_ms)}); data+routing median {med(data_ms):.1f} ms [{tag}]", flush=True)
-    print(f"sec/kimg: {step_ms / TRAIN_BATCH:.3f} (data + Gmain+Dmain + R1/16, medians); the loop's last tick "
-          f"{last_tick_sec_per_kimg(out['run_dir']):.3f} [{tag}]", flush=True)
-    step_launches, down2_classes = {}, {}
+    print(f"{label} sec/kimg: {step_ms / TRAIN_BATCH:.3f} (data + Gmain+Dmain + R1/16, medians); the loop's last "
+          f"tick {last_tick_sec_per_kimg(out['run_dir']):.3f} [{tag}]", flush=True)
+    return med(main_ms), med(r1_ms)
+
+
+def profile_steps(torch, ck, out, batch, tag, label, down2_classes=False):
+    """One Gmain+Dmain and one R1 step under torch.profiler (device ms, busy
+    share over the host time of the same step run once more unprofiled, top
+    operations); returns {step: (device ms, host ms, launches)}."""
+    trainer, state = out["trainer"], out["state"]
+    res, classes = {}, {}
     for name, fn, top_n in (("Gmain+Dmain", lambda: trainer.train_step(state, batch), 10),
                             ("R1", lambda: trainer.d_r1_step(state, batch), 6)):
         device_ms, n_ops, top = device_profile(torch, fn, iters=1, top=top_n)
-        # the host time and launches of the same step run once more, unprofiled
         torch.cuda.synchronize()
         ck.reset_launch_counts()
         t1 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t1) * 1e3
-        step_launches[name] = ck.launch_counts()
-        down2_classes[name] = count_down2_classes(torch, fn)
+        res[name] = (device_ms, host_ms, ck.launch_counts())
+        if down2_classes:
+            classes[name] = count_down2_classes(torch, fn)
         busy = "not measured" if device_ms is None else f"{device_ms / host_ms:.3f}"
         dev = "not measured (no device time in the trace)" if device_ms is None else f"{device_ms:.1f} ms"
-        print(f"profile {name} step (batch {TRAIN_BATCH}): host {host_ms:.1f} ms, device {dev}, busy {busy}, "
+        print(f"profile {label} {name} step (batch {TRAIN_BATCH}): host {host_ms:.1f} ms, device {dev}, busy {busy}, "
               f"{n_ops:.0f} device ops [{tag}]", flush=True)
         for op, op_ms, n in top:
             print(f"    {op_ms:9.3f} ms {n:7.1f}x  {op[:100]}", flush=True)
-    print(f"launches per step {step_launches} [{tag}]", flush=True)
-    for name, hist in down2_classes.items():
+    print(f"{label} launches per step { {k: v[2] for k, v in res.items()} } [{tag}]", flush=True)
+    for name, hist in classes.items():
         print(f"down2 launches in one {name} step by (pad, dtype, input shape), {sum(hist.values())} in all: "
               + ", ".join(f"{k}: {n}" for k, n in sorted(hist.items(), key=lambda kv: -kv[1])) + f" [{tag}]",
               flush=True)
+    return res
+
+
+def train_batch(torch):
+    from pasta_gan_tpu_torch.data.dataset import SyntheticUvitonDataset, collate, prepare_train_batch
+
+    ds = SyntheticUvitonDataset(num_samples=64, seed=0)
+    return prepare_train_batch(collate([ds[i] for i in range(TRAIN_BATCH)]), torch.Generator().manual_seed(1))
+
+
+def train_phase(torch, ck, tag, tmp):
+    """The noaug training path.  Returns the kernels' launch counts of its cli.train run."""
+    out, launches = run_cli_train(torch, ck, tag, tmp, "training", ["--aug", "noaug"])
+    batch = train_batch(torch)
+    step_times(torch, out, batch, tag, "training")
+    profile_steps(torch, ck, out, batch, tag, "training", down2_classes=True)
+    torch.backends.cudnn.allow_tf32 = False
+    return launches
+
+
+def ada_controller(torch, records, cfg):
+    """Progress/augment_p of each step by the controller's arithmetic (float32,
+    from the run's D(real) signs): every `interval` steps p moves by
+    sign(mean sign - target) * batch * interval / (kimg * 1000), not below 0."""
+    f32 = torch.float32
+    p, total, count, out = torch.tensor(cfg.ada.initial_p, dtype=f32), torch.zeros((), dtype=f32), 0.0, []
+    for i, r in enumerate(records):
+        total, count = total + torch.tensor(r["Loss/signs/real"], dtype=f32), count + 1.0
+        if (i + 1) % cfg.ada.interval == 0:
+            adjust = torch.sign(total / max(count, 1.0) - cfg.ada.target) * (
+                (cfg.batch_size * cfg.ada.interval) / (cfg.ada.kimg * 1000.0))
+            p, total, count = (p + adjust).clamp_min(0.0), torch.zeros((), dtype=f32), 0.0
+        out.append(float(p))
+    return out
+
+
+def pipe_times(torch, pipe, tag):
+    """The ADA pipe's own time per call at the step's shapes: forward over the
+    96 stacked images of Dmain, forward and backward over Gmain's 64 and over
+    R1's 32 (float32 images, as G gives them); device ms from torch.profiler,
+    wall ms from CUDA events.  Returns {label: device ms}."""
+    gen = torch.Generator().manual_seed(0)
+    res = {}
+    for label, n, backward in (("Dmain fwd", 3 * TRAIN_BATCH, False), ("Gmain fwd+bwd", 2 * TRAIN_BATCH, True),
+                               ("R1 fwd+bwd", TRAIN_BATCH, True)):
+        x = (torch.rand((n, 256, 256, 3), device="cuda") * 2 - 1).requires_grad_(backward)
+        cot = torch.randn((n, 256, 256, 3), device="cuda")
+
+        def run():
+            y = pipe(x, ADA_P, gen)
+            if backward:
+                torch.autograd.grad(y, x, cot)
+
+        device_ms, n_ops, top = device_profile(torch, run, iters=3, top=4)
+        wall_ms = cuda_time_ms(torch, run, iters=5, warmup=1)[1]
+        res[label] = device_ms
+        print(f"ADA pipe {label} over {n} images: device {device_ms:.2f} ms, {n_ops:.0f} device ops, "
+              f"CUDA events {wall_ms:.2f} ms (median of 5) [{tag}]; top: "
+              + "; ".join(f"{op[:60]} {ms:.2f} ms" for op, ms, _ in top), flush=True)
+    return res
+
+
+def train_ada_phase(torch, ck, tag, tmp):
+    """The training_ada path: cli.train --aug ada from p = ADA_P (bgc pipe,
+    two-pass warp, stacked D calls), then one --ada_exact_geom run of three steps
+    (D calls one by one).  Returns the launch counts of the --aug ada run."""
+    out, launches = run_cli_train(torch, ck, tag, tmp, "training_ada", ["--aug", "ada", "--p", str(ADA_P)])
+    trainer, records = out["trainer"], out["records"]
+    cfg = trainer.config
+    assert cfg.ada.enabled and cfg.ada.pipe == "bgc" and cfg.ada.fast_geom and cfg.ada.stack_calls
+    expected = ada_controller(torch, records, cfg)
+    got = [r["Progress/augment_p"] for r in records]
+    assert all(abs(a - b) <= 1e-7 for a, b in zip(got, expected)), f"augment p {got}, controller gives {expected}"
+    print(f"training_ada augment p by step {got} (controller: {expected}); D(real) signs "
+          f"{[r['Loss/signs/real'] for r in records]} [{tag}]", flush=True)
+    batch = train_batch(torch)
+    step_times(torch, out, batch, tag, "training_ada")
+    prof = profile_steps(torch, ck, out, batch, tag, "training_ada")
+    pipe = pipe_times(torch, trainer.augment_fn, tag)
+    main_dev = prof["Gmain+Dmain"][0]
+    if main_dev:
+        share = (pipe["Dmain fwd"] + pipe["Gmain fwd+bwd"]) / main_dev
+        print(f"ADA pipe share of a Gmain+Dmain step's device time (Dmain fwd + Gmain fwd+bwd over the profiled "
+              f"step): {share:.3f} [{tag}]", flush=True)
+    del out, trainer, batch
+    torch.cuda.empty_cache()
+
+    from pasta_gan_tpu_torch.cli import train as cli_train
+
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        ex = cli_train.main(["--outdir", os.path.join(tmp, "runs"), "--synthetic", "32", "--batch", str(TRAIN_BATCH),
+                             "--dtype", "bfloat16", "--seed", "0", "--kimg", str(3 * TRAIN_BATCH / 1000),
+                             "--aug", "ada", "--p", str(ADA_P), "--ada_exact_geom"])
+        torch.cuda.synchronize()
+        r = ex["records"]
+        assert not ex["trainer"].config.ada.stack_calls and not ex["trainer"].config.ada.fast_geom
+        assert all(math.isfinite(v) for rec in r for v in rec.values())
+        main_ms = [rec["Timing/Gmain_Dmain"] * 1e3 for rec in r[1:]]
+        print(f"training_ada --ada_exact_geom (D calls one by one): Gmain+Dmain steps 2-3 "
+              f"{', '.join(f'{t:.1f}' for t in main_ms)} ms (step 1 with "
+              f"warm-up {r[0]['Timing/Gmain_Dmain'] * 1e3:.1f} ms, its R1 {r[0]['Timing/Dreg'] * 1e3:.1f} ms); peak "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated [{tag}]", flush=True)
+        del ex
+    except torch.cuda.OutOfMemoryError as e:
+        print(f"training_ada --ada_exact_geom does not fit in the card's memory at batch {TRAIN_BATCH}: "
+              f"{str(e).splitlines()[0]} [{tag}]", flush=True)
+    torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = False
     return launches
 
@@ -990,61 +1123,94 @@ def last_tick_sec_per_kimg(run_dir):
         return json.loads(f.read().splitlines()[-1])["Timing/sec_per_kimg"]
 
 
-def train_card_vs_cpu(torch, tag):
+def train_card_vs_cpu(torch, tag, label="noaug", ada=None):
     """One fp32 training step (Gmain and Dmain gradients, train_step, d_r1_step)
     at a thin width (channel_base 512, channel_max 32, batch 4, noise off,
     no VGG, Adam eps 1e-3 as in tests/test_torch_train.py) on the card against
-    the port's CPU path, from the same weights and the same batch."""
+    the port's CPU path, from the same weights and the same batch.  `ada`:
+    None (no pipe), "debug" (the bgc pipe at debug percentile 0.3 on both
+    sides) or "random" (the bgc pipe from p = ADA_P; both trainers draw on
+    the host from the same seed, so both get the same draws).  Fast geometry,
+    stacked D calls.  Dmain runs on the G that Gmain updated, and the two
+    sides' G updates differ by ~3e-4 of the step, which moves D(real)'s mean
+    score by ~2e-4 of itself under random draws on an H100: with
+    ADA, Dmain's stats are compared from the gradient pass on the same
+    weights and R1 runs from the same state on both sides."""
     import copy
 
     from pasta_gan_tpu_torch.data.dataset import SyntheticUvitonDataset, collate, erasure_draws, prepare_train_batch
     from pasta_gan_tpu_torch.runtime.config import from_preset, replace_nested
+    from pasta_gan_tpu_torch.train.augment import AugmentPipe
     from pasta_gan_tpu_torch.train.step import GANTrainer
 
     cfg = replace_nested(from_preset("fashion", batch=4), **{
         "model.channel_base": 512, "model.channel_max": 32, "model.use_noise": False, "loss.vgg_weight": 0.0,
-        "ada.enabled": False, "g_opt.eps": 1e-3, "d_opt.eps": 1e-3})
+        "ada.enabled": ada is not None, "ada.initial_p": ADA_P, "g_opt.eps": 1e-3, "d_opt.eps": 1e-3})
+    augment_fn = None
+    if ada == "debug":
+        pipe = AugmentPipe.from_spec("bgc", fast_geom=True)
+        augment_fn = lambda im, p, gen: pipe(im, p, gen, debug_percentile=0.3)  # noqa: E731
     ds = SyntheticUvitonDataset(num_samples=4, seed=5)
     b_cpu = prepare_train_batch(collate([ds[i] for i in range(4)]), device="cpu",
                                 draws=erasure_draws(4, torch.Generator().manual_seed(2)))
     b_gpu = {k: v.cuda() for k, v in b_cpu.items()}
-    tc, tg = GANTrainer(cfg, device="cpu"), GANTrainer(cfg, device="cuda")
+    tc = GANTrainer(cfg, device="cpu", augment_fn=augment_fn)
+    tg = GANTrainer(cfg, device="cuda", augment_fn=augment_fn)
     sc = tc.init_state(torch.Generator().manual_seed(1))
     sg = tg.init_state(G=copy.deepcopy(sc.G), D=copy.deepcopy(sc.D))
 
+    def close(k, card, cpu):
+        assert abs(card - cpu) <= LOSS_RTOL * abs(cpu) + 1e-6, f"{label} {k}: card {card} vs CPU {cpu}"
+
     worst = 0.0
-    for fn in (lambda t, s: (lambda b: t.g_loss_fn(s.G, s.D, b), list(s.G.parameters())),
-               lambda t, s: (lambda b: t.d_loss_fn(s.D, s.G, b), list(s.D.parameters()))):
+    p = float(sc.ada_p)
+    g_keys = []
+    for fn in (lambda t, s: (lambda b: t.g_loss_fn(s.G, s.D, b, p), list(s.G.parameters())),
+               lambda t, s: (lambda b: t.d_loss_fn(s.D, s.G, b, p), list(s.D.parameters()))):
         (lc, pc), (lg, pg) = fn(tc, sc), fn(tg, sg)
-        gc, _ = tc._grads_with_accum(lc, pc, b_cpu)
-        gg, _ = tg._grads_with_accum(lg, pg, b_gpu)
+        gc, st_c = tc._grads_with_accum(lc, pc, b_cpu)
+        gg, st_g = tg._grads_with_accum(lg, pg, b_gpu)
+        g_keys = g_keys or list(st_c)
+        if ada is not None:
+            for k, v in st_c.items():
+                if v.ndim == 0:
+                    close(k, float(st_g[k]), float(v))
         floor = 1e-6 * max(float(g.norm()) for g in gc)
         for a, b in zip(gg, gc):
             # a gradient that vanishes in exact arithmetic (a bias in front of an
             # InstanceNorm) is held to the floor, the others to GRAD_REL_L2
             err, allowed = float((a.cpu() - b).norm()), GRAD_REL_L2 * float(b.norm()) + floor
-            assert err <= allowed, f"gradient on the card differs: {err} vs {float(b.norm())}"
+            assert err <= allowed, f"{label}: gradient on the card differs: {err} vs {float(b.norm())}"
             worst = max(worst, err / allowed)
 
     before = {n: {k: v.clone() for k, v in getattr(sc, n).state_dict().items()} for n in ("G", "D")}
-    stats = []
+    stats, r1_states = [], []
     for t, s, b in ((tc, sc, b_cpu), (tg, sg, b_gpu)):
-        s, st = t.train_step(s, b)
-        s, r1 = t.d_r1_step(s, b)
+        if ada is None:
+            s, st = t.train_step(s, b)
+            s, r1 = t.d_r1_step(s, b)
+        else:
+            r1_state, r1 = t.d_r1_step(copy.deepcopy(s), b)
+            r1_states.append(r1_state)
+            s, st = t.train_step(s, b)
+            st = {k: v for k, v in st.items() if k in g_keys or k == "Progress/augment_p"}
         stats.append({k: float(v) for k, v in {**st, **r1}.items()})
     for k, v in stats[0].items():
-        assert abs(stats[1][k] - v) <= LOSS_RTOL * abs(v) + 1e-6, f"{k}: card {stats[1][k]} vs CPU {v}"
+        close(k, stats[1][k], v)
+    pairs = [("G", sc.G, sg.G), ("D", sc.D, sg.D)]
+    if r1_states:
+        pairs.append(("D by R1", r1_states[0].D, r1_states[1].D))
     step_errs = {}
-    for n in ("G", "D"):
-        sd_c, sd_g = getattr(sc, n).state_dict(), getattr(sg, n).state_dict()
-        dc = torch.cat([(sd_c[k] - before[n][k]).flatten() for k in sorted(sd_c)])
-        dg = torch.cat([(sd_g[k].cpu() - before[n][k]).flatten() for k in sorted(sd_c)])
-        step_errs[n] = float((dg - dc).norm() / dc.norm())
-        assert step_errs[n] <= STEP_REL_L2, f"{n} step on the card differs from the CPU's: {step_errs[n]}"
-    print(f"card vs CPU training step (fp32, thin, batch 4): worst gradient difference {worst:.3g} of its "
-          f"allowance ({GRAD_REL_L2} relative L2, or 1e-6 of the largest gradient's norm), G/D step relative L2 {step_errs['G']:.3g}/{step_errs['D']:.3g} "
-          f"(limit {STEP_REL_L2}), r1 penalty card {stats[1]['Loss/r1_penalty']:.6g} CPU "
-          f"{stats[0]['Loss/r1_penalty']:.6g} [{tag}]", flush=True)
+    for name, m_c, m_g in pairs:
+        ref, sd_c, sd_g = before[name[0]], m_c.state_dict(), m_g.state_dict()
+        dc = torch.cat([(sd_c[k] - ref[k]).flatten() for k in sorted(sd_c)])
+        dg = torch.cat([(sd_g[k].cpu() - ref[k]).flatten() for k in sorted(sd_c)])
+        step_errs[name] = float((dg - dc).norm() / dc.norm())
+        assert step_errs[name] <= STEP_REL_L2, f"{label}: {name} step on the card differs from the CPU's: {step_errs[name]}"
+    print(f"card vs CPU training step, {label} (fp32, thin, batch 4): worst gradient difference {worst:.3g} of its "
+          f"allowance ({GRAD_REL_L2} relative L2, or 1e-6 of the largest gradient's norm), step relative L2 "
+          f"{', '.join(f'{k} {v:.3g}' for k, v in step_errs.items())} (limit {STEP_REL_L2}), r1 penalty card "
+          f"{stats[1]['Loss/r1_penalty']:.6g} CPU {stats[0]['Loss/r1_penalty']:.6g} [{tag}]", flush=True)
 
 
 def main():
@@ -1078,7 +1244,10 @@ def main():
         launches = {"serving_full": slice_phase(torch, wk, ck, tag, tmp)}
         launches.update(v18_phase(torch, wk, ck, tag, tmp))
         launches["training"] = train_phase(torch, ck, tag, tmp)
+        launches["training_ada"] = train_ada_phase(torch, ck, tag, tmp)
     train_card_vs_cpu(torch, tag)
+    train_card_vs_cpu(torch, tag, "ADA debug percentile", ada="debug")
+    train_card_vs_cpu(torch, tag, "ADA random draws", ada="random")
 
     kernels = [
         {"name": name, "route": "cuda", "source": f"pasta_gan_tpu_torch/csrc/{ck.KERNELS[name].source}",

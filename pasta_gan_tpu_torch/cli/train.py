@@ -1,12 +1,19 @@
 """Training CLI (counterpart of `pasta_gan_tpu/cli/train.py`).
 
 Trains the 256px GeneratorFull against the resnet Discriminator on one card,
-with `--aug noaug` (ADA is the next training slice), bf16 compute over fp32
-master weights by default, and the losses of record (L1 40, VGG 40, mask 20,
-R1 gamma from the preset, R1 every 16 steps):
+with ADA augmentation in front of D by default (`--aug ada`: the `bgc` pipe,
+the two-pass affine warp, stacked D calls, p adjusted towards `--target`),
+bf16 compute over fp32 master weights by default, and the losses of record
+(L1 40, VGG 40, mask 20, R1 gamma from the preset, R1 every 16 steps):
 
   python -m pasta_gan_tpu_torch.cli.train --outdir ./runs --synthetic 64 \\
-      --cfg fashion --batch 32 --kimg 0.128 --aug noaug
+      --cfg fashion --batch 32 --kimg 0.128 --aug ada
+
+`--aug fixed` starts at `--p` and, as in the JAX package, runs the same
+controller (ROADMAP notes the difference from the reference, which keeps p
+fixed); `--aug noaug` runs no pipe.  `--ada_exact_geom` swaps the two-pass
+warp for the exact bilinear one and, unless `--ada_stack_calls` is given,
+runs the D calls one by one.
 
 `--kimg` may be fractional (0.128 kimg at batch 32 is 4 steps).  The run
 directory gets training_options.json, stats.jsonl, a network snapshot of
@@ -49,7 +56,16 @@ def main(argv=None):
                    help="gradient-accumulation microbatches per phase; must divide the batch")
     p.add_argument("--dtype", default="bfloat16", choices=["float32", "bfloat16"],
                    help="compute dtype (fp32 master weights either way)")
-    p.add_argument("--aug", default="noaug", choices=["ada", "noaug", "fixed"])
+    p.add_argument("--aug", default="ada", choices=["ada", "noaug", "fixed"])
+    p.add_argument("--p", type=float, default=0.0, help="initial augment probability")
+    p.add_argument("--target", type=float, default=0.6, help="ADA target for the mean sign of D(real)")
+    p.add_argument("--augpipe", default="bgc", help="ADA pipe preset (train/augment.py:AUGPIPE_SPECS)")
+    p.add_argument("--ada_fast_geom", action="store_true",
+                   help="(default) the two-pass affine ADA warp; kept for the JAX CLI's invocations")
+    p.add_argument("--ada_exact_geom", action="store_true",
+                   help="the exact bilinear ADA warp; also runs the D calls one by one unless --ada_stack_calls")
+    p.add_argument("--ada_stack_calls", action="store_true",
+                   help="one stacked ADA+D call per loss (default with the two-pass warp)")
     p.add_argument("--l1_weight", type=float, default=40.0)
     p.add_argument("--vgg_weight", type=float, default=40.0)
     p.add_argument("--mask_weight", type=float, default=20.0)
@@ -61,9 +77,6 @@ def main(argv=None):
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
 
-    if args.aug != "noaug":
-        raise SystemExit(f"--aug {args.aug}: ADA augmentation is the next training slice of the port "
-                         "(train/augment.py, ops/shear_warp.py); use --aug noaug")
     if args.pl_weight > 0:
         raise SystemExit("--pl_weight > 0: path-length regularization (g_pl_step) is a later slice of the port")
     if args.contextual_weight > 0:
@@ -74,6 +87,7 @@ def main(argv=None):
 
     from ..data.dataset import SyntheticUvitonDataset
     from ..runtime.config import from_preset, replace_nested
+    from ..train.augment import AUGPIPE_SPECS
     from ..train.loop import training_loop
     from ..train.vgg import init_vgg19, load_torch_vgg19
 
@@ -81,9 +95,17 @@ def main(argv=None):
     overrides = {
         "loss.l1_weight": args.l1_weight, "loss.vgg_weight": args.vgg_weight,
         "loss.mask_weight": args.mask_weight, "loss.pl_weight": args.pl_weight,
-        "loss.contextual_weight": args.contextual_weight, "ada.enabled": False,
+        "loss.contextual_weight": args.contextual_weight,
+        "ada.enabled": args.aug != "noaug", "ada.target": args.target, "ada.pipe": args.augpipe,
+        "ada.initial_p": args.p, "ada.fast_geom": not args.ada_exact_geom,
+        "ada.stack_calls": args.ada_stack_calls or not args.ada_exact_geom,
         "random_seed": args.seed, "compute_dtype": args.dtype,
     }
+    if args.augpipe not in AUGPIPE_SPECS:
+        raise SystemExit(f"--augpipe {args.augpipe}: not an ADA pipe preset ({', '.join(AUGPIPE_SPECS)})")
+    if args.resume is not None and not os.path.isdir(args.resume):
+        # the JAX CLI's rule: ADA reacts faster when resuming from a file
+        overrides["ada.kimg"] = 100
     if args.fmaps is not None:
         overrides["model.channel_base"] = int(args.fmaps * 32768)
     if args.accum is not None:

@@ -60,6 +60,7 @@ __all__ = [
     "transfer_warp_inputs",
     "v19_warp_inputs",
     "warp_perspective",
+    "warp_perspective_inv",
 ]
 
 DENORM_ROUTES = ("fused", "separate")
@@ -70,6 +71,14 @@ def warp_perspective(img: torch.Tensor, M: torch.Tensor, out_hw, border: str = "
     ones = torch.ones((1, 1), dtype=torch.float32, device=img.device)
     out = denorm_warp_reference(img.permute(2, 0, 1)[None, None], inv3x3(M)[None, None], ones, out_hw, border)
     return out[0, 0].permute(1, 2, 0)
+
+
+def warp_perspective_inv(img: torch.Tensor, Minv: torch.Tensor, out_hw, border: str = "constant") -> torch.Tensor:
+    """Warp a batch img [B, C, H, W] with explicit dst->src matrices Minv
+    [B, 3, 3] (no inversion), bilinear: the exact warp of the ADA pipe.
+    Differentiable (to every order) in img, not in Minv; float32 out."""
+    ones = torch.ones((img.shape[0], 1), dtype=torch.float32, device=img.device)
+    return denorm_warp_reference(img[:, None], Minv[:, None].detach(), ones, out_hw, border)[:, 0]
 
 
 class RoutedPatches(NamedTuple):

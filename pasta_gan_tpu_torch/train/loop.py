@@ -124,7 +124,7 @@ def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg
             r1 = f" r1 {line['Loss/r1_penalty']:.4g}" if "Loss/r1_penalty" in line else ""  # only ticks that ran R1
             print(f"tick {cur_tick:<5d} kimg {cur_nimg / 1e3:<8.3f} step {state.step:<6d} "
                   f"time {tick_end - start_time:<8.1f}s sec/kimg {sec_per_kimg:<8.2f} "
-                  f"G/loss {line['Loss/G/loss']:.3f} D/loss {line['Loss/D/loss']:.3f}{r1}", flush=True)
+                  f"augment {line['Progress/augment_p']:.3f} G/loss {line['Loss/G/loss']:.3f} D/loss {line['Loss/D/loss']:.3f}{r1}", flush=True)
         cur_tick += 1
         tick_start_nimg, tick_start_time, tick_records = cur_nimg, time.time(), []
         if done:

@@ -3,13 +3,22 @@
 Phases of the reference's fashion config, as in the JAX package:
 
 * `train_step`  Gmain, then Dmain on the *updated* G, then G_ema, w_avg and
-                the ADA sign counters;
-* `d_r1_step`   Dreg: R1 with the lazy-regularization gain d_reg_interval.
+                the ADA controller;
+* `d_r1_step`   Dreg: R1 with the lazy-regularization gain d_reg_interval,
+                through the ADA pipe at the state's p.
 
-Greg (path length, weight 0 in the config of record), the contextual loss
-(weight 0) and ADA are later slices: the trainer refuses a config that asks
-for them.  With ADA off the per-loss D calls run one after another, which is
-the grouping the JAX package's stacked calls reproduce.
+Greg (path length, weight 0 in the config of record) and the contextual
+loss (weight 0) are later slices: the trainer refuses a config that asks for
+them.
+
+ADA (train/augment.py) runs in front of every D call when `config.ada` is
+enabled, or when an `augment_fn(images, p, generator)` is given (the tests
+give a debug-percentile pipe).  Its draws come from one CPU generator of the
+trainer, and p is read from the state once per step.  With
+`ada.stack_calls` the per-loss D calls run as one call over the stacked
+images ([img, ft_img] in Gmain, [img, ft_img, real] in Dmain), ordered by
+`_stack_perm` so that every minibatch-std group stays inside one sub-batch
+as in the calls one by one; without a pipe the calls run one by one.
 
 Gradients come from `torch.autograd.grad` over one network's parameters, so
 the other network accumulates nothing; microbatches (`accum_steps`) add
@@ -23,6 +32,7 @@ from __future__ import annotations
 import copy
 from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from ..models.generator_full import GeneratorFull, cat_feats_dict, nchw
@@ -43,8 +53,6 @@ def _scrub(grads: List[torch.Tensor], posinf: float) -> List[torch.Tensor]:
 def unsupported_features(config: TrainConfig) -> List[str]:
     """What `config` asks for that this training path does not run yet."""
     out = []
-    if config.ada.enabled:
-        out.append("ADA augmentation (--aug ada/fixed; train/augment.py, the next training slice)")
     if config.loss.pl_weight > 0:
         out.append("path-length regularization (pl_weight > 0; g_pl_step, a later slice)")
     if config.loss.contextual_weight > 0:
@@ -60,7 +68,7 @@ class GANTrainer:
     """Builds the networks and optimizers of a config and runs its phases."""
 
     def __init__(self, config: TrainConfig, vgg: Optional[VGG19Features] = None, device="cuda",
-                 noise_seed: int = 0):
+                 noise_seed: int = 0, augment_fn: Optional[Callable] = None):
         bad = unsupported_features(config)
         if bad:
             raise ValueError("this training path does not run: " + "; ".join(bad))
@@ -71,6 +79,13 @@ class GANTrainer:
         self.g_opt_cfg = lazy_reg_scaling(config.g_opt, config.g_reg_interval)
         self.d_opt_cfg = lazy_reg_scaling(config.d_opt, config.d_reg_interval)
         self.noise = torch.Generator(device=self.device).manual_seed(noise_seed)
+        if augment_fn is None and config.ada.enabled:
+            from .augment import AugmentPipe
+
+            augment_fn = AugmentPipe.from_spec(config.ada.pipe, static_margin=config.ada.static_margin,
+                                               fast_geom=config.ada.fast_geom)
+        self.augment_fn = augment_fn  # (images NHWC, p, generator) -> images
+        self.augment_gen = torch.Generator().manual_seed(noise_seed)  # the pipe's draws, on the host
 
     # ------------------------------------------------------------- init
 
@@ -122,19 +137,53 @@ class GANTrainer:
             batch["denorm_upper_mask"], batch["denorm_lower_mask"], noise_mode="random", generator=self.noise)
         return img, ft_img, parsing, ws, w_raw, stylecode
 
-    @staticmethod
-    def run_D(D: Discriminator, img: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-        """D on an NHWC image batch (no augmentation in this slice)."""
+    def run_D(self, D: Discriminator, img: torch.Tensor, c: torch.Tensor, p: float = 0.0) -> torch.Tensor:
+        """The ADA pipe at probability p, then D, on an NHWC image batch.  The
+        pipe runs in the images' own dtype."""
+        if self.augment_fn is not None:
+            img = self.augment_fn(img, p, self.augment_gen)
         return D(nchw(img), c)
+
+    def _stack_perm(self, n: int, k: int) -> Optional[np.ndarray]:
+        """Where sample i of sub-batch j goes in a stacked D call:
+
+            pos(j, i) = j*(n/G) + i mod (n/G) + (i div (n/G)) * k*(n/G)
+
+        MinibatchStdLayer groups strided over the batch (sample q's group is
+        {q mod N/G + g*N/G}), so a plain concat would mix gen, finetune and
+        real samples in one group; this order keeps each group inside one
+        sub-batch and gives the grouping {i, i+n/G, ...} of the calls one by
+        one.  None where no such order exists (G None, or n % G != 0)."""
+        g = self.config.model.mbstd_group_size
+        if g is None or g <= 0 or n % g:
+            return None
+        npg = n // g
+        j = np.arange(k)[:, None]
+        i = np.arange(n)[None, :]
+        return (j * npg + i % npg + (i // npg) * (k * npg)).reshape(-1)
+
+    def _run_D_multi(self, D: Discriminator, imgs: List[torch.Tensor], c: torch.Tensor, p: float):
+        """The pipe and D over several image batches of n samples each: one
+        stacked call (`ada.stack_calls`, a pipe, and a `_stack_perm` order),
+        else one call per batch.  Returns one logits tensor per batch."""
+        n, k = imgs[0].shape[0], len(imgs)
+        pos = (self._stack_perm(n, k) if self.config.ada.stack_calls and k > 1 and self.augment_fn is not None
+               else None)
+        if pos is None:
+            return [self.run_D(D, img, c, p) for img in imgs]
+        pos_t = torch.from_numpy(pos).to(c.device)
+        inv = torch.from_numpy(np.argsort(pos)).to(c.device)  # position q holds stacked sample inv[q]
+        stacked = torch.cat(imgs)[inv]  # promotes mixed dtypes, as JAX's concatenate does
+        logits = self.run_D(D, stacked, torch.cat([c] * k)[inv], p)[pos_t]
+        return list(logits.split(n))
 
     # ------------------------------------------------------------- losses
 
-    def g_loss_fn(self, G, D, batch: Batch):
+    def g_loss_fn(self, G, D, batch: Batch, p: float = 0.0):
         cfg = self.config.loss
         img, ft_img, parsing, _, w_raw, gen_c = self.run_G(G, batch)
         real = batch["real_img"]
-        gen_logits = self.run_D(D, img, gen_c)
-        ft_logits = self.run_D(D, ft_img, gen_c)
+        gen_logits, ft_logits = self._run_D_multi(D, [img, ft_img], gen_c, p)
         loss_gan = losses.g_nonsaturating(gen_logits)
         loss_gan_ft = losses.g_nonsaturating(ft_logits)
         loss_l1 = losses.l1_loss(img, real) * cfg.l1_weight
@@ -161,12 +210,10 @@ class GANTrainer:
         }
         return total, stats
 
-    def d_loss_fn(self, D, G, batch: Batch):
+    def d_loss_fn(self, D, G, batch: Batch, p: float = 0.0):
         with torch.no_grad():
             img, ft_img, _, _, _, gen_c = self.run_G(G, batch)
-        gen_logits = self.run_D(D, img, gen_c)
-        ft_logits = self.run_D(D, ft_img, gen_c)
-        real_logits = self.run_D(D, batch["real_img"], gen_c)
+        gen_logits, ft_logits, real_logits = self._run_D_multi(D, [img, ft_img, batch["real_img"]], gen_c, p)
         loss_dgen = (losses.d_fake(gen_logits) + losses.d_fake(ft_logits)) / 2
         loss_dreal = losses.d_real(real_logits)
         total = loss_dgen + loss_dreal
@@ -205,14 +252,15 @@ class GANTrainer:
         opt.zero_grad(set_to_none=True)
 
     def train_step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """Gmain, Dmain on the updated G, G_ema, w_avg and the ADA counters; in place."""
+        """Gmain, Dmain on the updated G, G_ema, w_avg and the ADA controller; in place."""
         cfg = self.config
+        p = float(state.ada_p)  # both phases augment at the step's starting p
         g_params = list(state.G.parameters())
-        g_grads, g_stats = self._grads_with_accum(lambda b: self.g_loss_fn(state.G, state.D, b), g_params, batch)
+        g_grads, g_stats = self._grads_with_accum(lambda b: self.g_loss_fn(state.G, state.D, b, p), g_params, batch)
         self._apply(state.g_opt, g_params, g_grads)
 
         d_params = list(state.D.parameters())
-        d_grads, d_stats = self._grads_with_accum(lambda b: self.d_loss_fn(state.D, state.G, b), d_params, batch)
+        d_grads, d_stats = self._grads_with_accum(lambda b: self.d_loss_fn(state.D, state.G, b, p), d_params, batch)
         self._apply(state.d_opt, d_params, d_grads)
 
         with torch.no_grad():
@@ -228,20 +276,30 @@ class GANTrainer:
             state.w_avg.copy_(w_mean + cfg.w_avg_beta * (state.w_avg - w_mean))
             state.ada_signs_sum.add_(d_stats["Loss/signs/real"])
             state.ada_signs_count.add_(1.0)
+            if cfg.ada.enabled and (state.step + 1) % cfg.ada.interval == 0:
+                # ADA controller (training_loop...py:536-539)
+                mean_sign = state.ada_signs_sum / state.ada_signs_count.clamp_min(1.0)
+                adjust = torch.sign(mean_sign - cfg.ada.target) * (
+                    (cfg.batch_size * cfg.ada.interval) / (cfg.ada.kimg * 1000.0))
+                state.ada_p.copy_((state.ada_p + adjust).clamp_min(0.0))
+                state.ada_signs_sum.zero_()
+                state.ada_signs_count.zero_()
         state.step += 1
         stats = {**g_stats, **d_stats, "Progress/augment_p": state.ada_p.clone()}
         return state, stats
 
     def d_r1_step(self, state: TrainState, batch: Batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """Dreg: R1 on the real images with the lazy-regularization gain; in place."""
+        """Dreg: R1 on the real images, through the pipe at the state's p, with
+        the lazy-regularization gain; in place."""
         cfg = self.config
         gain = float(cfg.d_reg_interval or 1)
         scale = cfg.loss.r1_gamma / 2.0 * gain
+        p = float(state.ada_p)
 
         def r1_loss(b):
             with torch.no_grad():  # conditioning from the style encoder; Dreg does not touch G
                 gen_c, _ = state.G.encode_style(b["style_input"], b["retain"])
-            penalty = losses.r1_penalty(lambda x: self.run_D(state.D, x, gen_c), b["real_img"])
+            penalty = losses.r1_penalty(lambda x: self.run_D(state.D, x, gen_c, p), b["real_img"])
             return penalty * scale, {"Loss/r1_penalty": penalty}
 
         d_params = list(state.D.parameters())

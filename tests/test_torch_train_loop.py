@@ -5,8 +5,10 @@
   it (tiny config, noise off).
 * `cli.train.main` takes two steps at a thin width (channel_base 256) on the
   CPU, runs R1 on the first, writes a servable network snapshot and a
-  train-state checkpoint, and `--resume` continues from it.
-* The options that name a later slice are refused, not ignored.
+  train-state checkpoint, and `--resume` continues from it
+  (tests/test_torch_train_ada_cli.py does the same with `--aug ada`).
+* The options that name a later slice, or an unknown ADA pipe, are refused,
+  not ignored.
 """
 
 import dataclasses
@@ -23,7 +25,8 @@ from pasta_gan_tpu_torch.runtime import config as tconfig
 from pasta_gan_tpu_torch.train.step import GANTrainer
 
 RES, N = 16, 4
-THIN = ["--device", "cpu", "--synthetic", "2", "--batch", "2", "--fmaps", str(256 / 32768), "--vgg_weight", "0"]
+THIN = ["--device", "cpu", "--synthetic", "2", "--batch", "2", "--fmaps", str(256 / 32768), "--vgg_weight", "0",
+        "--aug", "noaug"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -111,7 +114,8 @@ def test_cli_train_two_steps_on_cpu_then_resume(tmp_path):
 
 
 @pytest.mark.parametrize("flags,slice_name", [
-    (["--aug", "ada"], "ADA"), (["--aug", "fixed"], "ADA"), (["--pl_weight", "2"], "path-length"),
+    (["--aug", "ada", "--augpipe", "bgcx"], "ADA"), (["--aug", "fixed", "--augpipe", "none"], "ADA"),
+    (["--pl_weight", "2"], "path-length"),
     (["--contextual_weight", "1"], "contextual"), ([], "--synthetic"),
 ])
 def test_cli_train_refuses_later_slices(tmp_path, flags, slice_name):
@@ -121,6 +125,6 @@ def test_cli_train_refuses_later_slices(tmp_path, flags, slice_name):
 
 
 def test_trainer_refuses_unsupported_configs():
-    for kw in ({"ada": tconfig.AdaConfig(enabled=True)}, {"loss": tconfig.LossConfig(pl_weight=1.0)}):
+    for kw in ({"loss": tconfig.LossConfig(contextual_weight=1.0)}, {"loss": tconfig.LossConfig(pl_weight=1.0)}):
         with pytest.raises(ValueError):
             GANTrainer(dataclasses.replace(tiny_config(), **kw), device="cpu")

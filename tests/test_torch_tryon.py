@@ -212,7 +212,8 @@ def test_port_imports_no_jax_cv2_pil_or_jax_package():
     rel = {os.path.relpath(f, REPO) for f in files}
     later_slices = {f"pasta_gan_tpu_torch/{m}.py" for m in (
         "ops/cuda_kernels", "ops/upfirdn_kernels", "nn/discriminator", "runtime/config", "train/losses",
-        "train/vgg", "train/state", "train/step", "train/loop", "cli/train", "models/generator_v18")}
+        "train/vgg", "train/state", "train/step", "train/loop", "cli/train", "models/generator_v18",
+        "train/augment", "ops/shear_warp")}
     assert later_slices <= rel, sorted(later_slices - rel)
     bad = [(os.path.relpath(f, REPO), mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in FORBIDDEN]
