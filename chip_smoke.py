@@ -57,6 +57,20 @@ Phases, each fatal on failure:
    width is held against the same step on the port's CPU path, without ADA,
    with the debug-percentile `bgc` pipe and with random draws (the pipe
    draws on the host, so one seed gives both sides the same draws).
+8. Real-data phase (`real_data`, on the committed fixture tree
+   tests/fixtures/upt_mini, whose MANIFEST.json holds the digests of PIL's
+   decoded arrays and of the JAX package's `load_sample`, neither of which
+   this machine has): every file decoded and every record loaded by the
+   port must match its digest; host ms a sample of JPEG and PNG decoding,
+   keypoints + stickman, masks and `load_sample`, and `InfiniteLoader` at
+   batch 32 with 1 and 3 worker processes; `cli.test --dataroot` serves the
+   fixture's 16 test pairs with the Full snapshot of phase 3
+   (`serving_real`, PNGs named by the JAX rule) and the try-on is timed at
+   batch 16 with the host loading inside the timed call and with the batch
+   loaded beforehand; `cli.train --data --workers 3 --aug noaug` trains 4
+   full-width steps at batch 32 (`training_real`), one tick a step and
+   `--snap 2`, so a snapshot is saved at step 3 and at the end, printing
+   `Timing/data` beside Gmain+Dmain for each step.
 Each path's launch counts are set to 0 just before it runs and read just
 after; each path must launch exactly its kernels (`PATH_KERNELS`).  The
 training phase also counts down2's launches by (pad, dtype, input shape) in
@@ -100,7 +114,8 @@ BF16_REL_L2 = 0.1
 FUSED = {"norm_warp", "composite", "up2", "down2"}
 PATH_KERNELS = {"serving_full": FUSED, "serving_v18_fused": FUSED,
                 "serving_v18_separate": {"norm_warp", "denorm_warp", "up2", "down2"}, "training": FUSED,
-                "training_ada": FUSED}
+                "training_ada": FUSED, "serving_real": FUSED, "training_real": FUSED}
+FIXTURE = os.path.join("tests", "fixtures", "upt_mini")  # the UPT-layout fixture tree, relative to this script
 
 
 def card_tag():
@@ -641,14 +656,14 @@ def fir_kernel_phase(torch, tag):
     return results
 
 
-def serve(torch, cli, ck, tag, path, argv):
-    """One `cli.test.main` run of 16 synthetic pairs with the launch counts
-    set to 0 just before it and read just after; the run must write 16 PNGs
-    (the CLI refuses non-finite images) and launch exactly the path's
-    kernels.  Returns the counts."""
+def serve(torch, cli, ck, tag, path, argv, data=("--synthetic", "16")):
+    """One `cli.test.main` run of 16 pairs (synthetic, or `data`'s) with the
+    launch counts set to 0 just before it and read just after; the run must
+    write 16 PNGs (the CLI refuses non-finite images) and launch exactly the
+    path's kernels.  Returns (counts, written paths)."""
     ck.reset_launch_counts()
     t0 = time.perf_counter()
-    written = cli.main(argv + ["--synthetic", "16", "--batchsize", "16"])
+    written = cli.main(argv + [*data, "--batchsize", "16"])
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = ck.launch_counts()
@@ -660,7 +675,7 @@ def serve(torch, cli, ck, tag, path, argv):
             assert f.read(8) == b"\x89PNG\r\n\x1a\n", p
     ran = {name for name, n in launches.items() if n > 0}
     assert ran == PATH_KERNELS[path], f"{path} launched {sorted(ran)}, expected {sorted(PATH_KERNELS[path])}"
-    return launches
+    return launches, written
 
 
 def batch_diff(torch, wk, a, b, r, patches):
@@ -746,7 +761,7 @@ def slice_phase(torch, wk, ck, tag, tmp):
     save_snapshot(snap, gen.state_dict(), 0.1 * torch.randn(512, generator=g),
                   {"model": gen.config, "generator": gen.variant})
     del gen
-    launches = serve(torch, cli, ck, tag, "serving_full", ["--network", snap, "--outdir", os.path.join(tmp, "tryon")])
+    launches, _ = serve(torch, cli, ck, tag, "serving_full", ["--network", snap, "--outdir", os.path.join(tmp, "tryon")])
 
     # ---- the card's result against the port's CPU path on a small input
     ds = SyntheticUvitonDataset(num_samples=4, seed=3)
@@ -813,7 +828,7 @@ def v18_phase(torch, wk, ck, tag, tmp):
     launches = {}
     for denorm in ("fused", "separate"):
         path = f"serving_v18_{denorm}"
-        launches[path] = serve(torch, cli, ck, tag, path, [
+        launches[path], _ = serve(torch, cli, ck, tag, path, [
             "--network", snap, "--generator", "v18", "--denorm", denorm,
             "--outdir", os.path.join(tmp, f"tryon_v18_{denorm}")])
 
@@ -891,9 +906,9 @@ def device_profile(torch, fn, iters=5, top=8):
     return (device_ms or None), n_ops, [(op, us / 1e3 / iters, n / iters) for op, (us, n) in ranked]
 
 
-def run_cli_train(torch, ck, tag, tmp, path, argv):
+def run_cli_train(torch, ck, tag, tmp, path, argv, data=("--synthetic", "64")):
     """cli.train at full width: TRAIN_STEPS steps at batch TRAIN_BATCH, bf16, R1
-    on the first, 64 synthetic samples, extra flags `argv`.  Checks what every
+    on the first, 64 synthetic samples (or `data`'s), extra flags `argv`.  Checks what every
     training path must give (finite stats, G, D and G_ema moved, exactly the
     kernels of PATH_KERNELS[path]) and returns (cli output, launches)."""
     from pasta_gan_tpu_torch.cli import train as cli_train
@@ -904,7 +919,7 @@ def run_cli_train(torch, ck, tag, tmp, path, argv):
     torch.cuda.reset_peak_memory_stats()
     ck.reset_launch_counts()
     t0 = time.perf_counter()
-    out = cli_train.main(["--outdir", os.path.join(tmp, "runs"), "--synthetic", "64", "--batch", str(TRAIN_BATCH),
+    out = cli_train.main(["--outdir", os.path.join(tmp, "runs"), *data, "--batch", str(TRAIN_BATCH),
                           "--dtype", "bfloat16", "--seed", "0", "--kimg", str(TRAIN_STEPS * TRAIN_BATCH / 1000),
                           *argv])
     torch.cuda.synchronize()
@@ -912,8 +927,8 @@ def run_cli_train(torch, ck, tag, tmp, path, argv):
     launches = ck.launch_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     trainer, state, records = out["trainer"], out["state"], out["records"]
-    print(f"cli.train {' '.join(argv)}: {state.step} steps at batch {TRAIN_BATCH} in {wall_s:.1f} s (includes "
-          f"drawing 64 synthetic samples on the host); launches {launches}; peak {peak_gb:.2f} GB allocated [{tag}]",
+    print(f"cli.train {' '.join([*data, *argv])}: {state.step} steps at batch {TRAIN_BATCH} in {wall_s:.1f} s "
+          f"(includes making the samples on the host); launches {launches}; peak {peak_gb:.2f} GB allocated [{tag}]",
           flush=True)
     assert state.step == TRAIN_STEPS and len(records) == TRAIN_STEPS
     assert "Loss/r1_penalty" in records[0], "R1 did not run on the first step"
@@ -1095,6 +1110,156 @@ def train_ada_phase(torch, ck, tag, tmp):
     return launches
 
 
+def array_digest(a):
+    """Shape, dtype and sha256 of an array's values, as MANIFEST.json records
+    them (a boolean array hashed as 0/1 bytes)."""
+    import hashlib
+
+    import numpy as np
+
+    a = np.asarray(a)
+    raw = np.ascontiguousarray(a.astype(np.uint8) if a.dtype == bool else a)
+    return {"shape": list(a.shape), "dtype": str(a.dtype), "sha256": hashlib.sha256(raw.tobytes()).hexdigest()}
+
+
+def median_ms(fn, args_list, reps=3):
+    """Median wall ms of fn(*args) over every args of the list, `reps` times each."""
+    ts = []
+    for args in args_list:
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn(*args)
+            ts.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(ts)
+
+
+def real_data_phase(torch, ck, tag, tmp):
+    """The real-data paths on the fixture tree: every decoded file and every
+    `load_sample` record against MANIFEST.json's digests (PIL's and the JAX
+    package's arrays); host times of decoding, the stickman, the masks,
+    load_sample and the loader; `cli.test --dataroot` with the Full snapshot
+    of the serving phase (`serving_real`) and imgs/s with and without the
+    host loading; `cli.train --data` (`training_real`) with a snapshot inside
+    the run and one at its end.  Returns the two paths' launch counts."""
+    import numpy as np
+
+    from pasta_gan_tpu_torch.cli import test as cli
+    from pasta_gan_tpu_torch.data import dataset as tds
+    from pasta_gan_tpu_torch.data import image_io, masks, stickman
+    from pasta_gan_tpu_torch.train import loop
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), FIXTURE)
+    with open(os.path.join(root, "MANIFEST.json")) as f:
+        man = json.load(f)
+
+    # ---- every fixture array against the manifest
+    bad = [rel for rel, d in man["files"].items() if array_digest(image_io.read_image(os.path.join(root, rel))) != d]
+    bad += [rel for rel, d in man["acgpn_l256"].items()
+            if array_digest(image_io.read_l_resized(os.path.join(root, rel), (256, 256))) != d]
+    records = []
+    for key, want in sorted(man["records"].items()):
+        ds, person = key.split("/")
+        rec = tds.record_paths(root, ds, person, ".png" if ds == "MPV_256_192" else "_label.png")
+        records.append(rec)
+        got = {k: array_digest(v) for k, v in tds.load_sample(*rec).items()}
+        bad += [f"{key} {k}" for k in sorted(set(want) | set(got)) if got.get(k) != want.get(k)]
+    assert not bad, f"arrays that differ from MANIFEST.json: {bad}"
+    n_arrays = sum(len(v) for v in man["records"].values())
+    print(f"real_data: {len(man['files'])} decoded files, {len(man['acgpn_l256'])} resized ACGPN masks and "
+          f"{len(records)} load_sample records ({n_arrays} arrays) equal MANIFEST.json's digests [{tag}]", flush=True)
+
+    # ---- host times on this machine's CPU, medians over the fixture
+    jpgs = [(os.path.join(root, rel),) for rel in man["files"] if rel.endswith(".jpg")]
+    pngs = [(os.path.join(root, rel),) for rel in man["files"] if rel.endswith(".png")]
+    mask_args = []
+    for _, kpt, par in records:
+        parsing = image_io.read_image(par)
+        parsing, left = tds.pad_to_square((parsing[..., 0] if parsing.ndim == 3 else parsing).astype(np.uint8), 0)
+        kps = stickman.load_keypoints(kpt)
+        kps[:, 0] += left
+        mask_args.append((kps, parsing))
+    host = {
+        "JPEG decode (read_rgb)": median_ms(image_io.read_rgb, jpgs),
+        "PNG decode (read_image)": median_ms(image_io.read_image, pngs),
+        "keypoints + stickman": median_ms(lambda k: stickman.draw_pose_from_cords(stickman.load_keypoints(k), (256, 192)),
+                                          [(kpt,) for _, kpt, _ in records]),
+        "masks (build_sample_masks)": median_ms(masks.build_sample_masks, mask_args),
+        "load_sample": median_ms(tds.load_sample, records),
+    }
+    print("real_data host ms a sample (median over the fixture, this machine's CPU): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in host.items()) + f" [{tag}]", flush=True)
+    train_ds = tds.UvitonDatasetFull(root)
+    for workers in (1, 3):
+        t0 = time.perf_counter()
+        with loop.InfiniteLoader(train_ds, TRAIN_BATCH, seed=0, num_workers=workers) as loader:
+            next(loader)
+            first_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            for _ in range(5):
+                next(loader)
+            ms = (time.perf_counter() - t0) * 1e3 / 5
+        print(f"real_data InfiniteLoader batch {TRAIN_BATCH}, {workers} worker process(es): first batch after "
+              f"{first_s:.2f} s (start-up included), then {ms:.1f} ms a batch over 5 batches [{tag}]", flush=True)
+
+    # ---- serving the fixture's test pairs with the Full snapshot of the serving phase
+    snap = os.path.join(tmp, "snapshot.pt")
+    launches_s, written = serve(torch, cli, ck, tag, "serving_real",
+                                ["--network", snap, "--outdir", os.path.join(tmp, "tryon_real")], data=("--dataroot", root))
+    with open(os.path.join(root, "UPT_subset1_256_192", "test_pairs_front_list_shuffle_0508.txt")) as f:
+        names = [f"{a.split('.')[0]}__{b.split('.')[0]}.png" for a, b in (line.split() for line in f)]
+    assert [os.path.basename(p) for p in written] == names, "served file names do not follow the JAX rule"
+    test_ds = tds.UvitonDataset256Test(root)
+    gen, w_avg = cli.load_generator(snap, torch.device("cuda"))
+    gen.set_dtype(torch.bfloat16)
+
+    def load16():
+        pairs = [test_ds[i] for i in range(16)]
+        return tds.collate([p["person"] for p in pairs]), tds.collate([p["garment"] for p in pairs])
+
+    def tryon(person, garment):
+        b = tds.prepare_tryon_batch(person, garment, device="cuda")
+        return cli.tryon_forward(gen, w_avg, {k: v.to(torch.bfloat16) for k, v in b.items()})
+
+    loaded = load16()
+    with_ms, out = host_ms(torch, lambda: tryon(*load16()), 5)
+    assert tuple(out.shape) == (16, 256, 256, 3) and bool(torch.isfinite(out.float()).all())
+    pre_ms, _ = host_ms(torch, lambda: tryon(*loaded), 10)
+    print(f"real_data try-on (Full, bf16, batch 16, fixture pairs): host loading included {with_ms:.2f} ms, "
+          f"{16 / with_ms * 1e3:.1f} imgs/s (median of 5); loaded beforehand {pre_ms:.2f} ms, "
+          f"{16 / pre_ms * 1e3:.1f} imgs/s (median of 10) [{tag}]", flush=True)
+    del gen, out
+
+    # ---- training on the fixture: a snapshot inside the run (tick 2, --snap 2) and one at its end
+    saves, save = [], loop._save_snapshot
+
+    def counted(run_dir, state, config, cur_nimg, verbose):
+        saves.append((state.step, os.path.join(run_dir, f"network-snapshot-{cur_nimg // 1000:06d}.pt")))
+        return save(run_dir, state, config, cur_nimg, verbose)
+
+    loop._save_snapshot = counted
+    try:
+        out, launches_t = run_cli_train(
+            torch, ck, tag, tmp, "training_real",
+            ["--aug", "noaug", "--workers", "3", "--kimg_per_tick", str(TRAIN_BATCH / 1000), "--snap", "2"],
+            data=("--data", root))
+    finally:
+        loop._save_snapshot = save
+    torch.backends.cudnn.allow_tf32 = False
+    assert [step for step, _ in saves] == [3, TRAIN_STEPS], f"snapshots saved at steps {[s for s, _ in saves]}"
+    assert all(os.path.exists(p) for _, p in saves)
+    assert os.path.exists(os.path.join(out["run_dir"], "train-state-latest.pt"))
+    recs = out["records"]
+    for i, r in enumerate(recs):
+        r1 = f", R1 {r['Timing/Dreg'] * 1e3:.1f} ms" if "Timing/Dreg" in r else ""
+        print(f"training_real step {i + 1}: Timing/data {r['Timing/data'] * 1e3:.1f} ms (loader wait + routing), "
+              f"Gmain+Dmain {r['Timing/Gmain_Dmain'] * 1e3:.1f} ms{r1} [{tag}]", flush=True)
+    data_ms = statistics.median(r["Timing/data"] * 1e3 for r in recs[1:])
+    main_ms = statistics.median(r["Timing/Gmain_Dmain"] * 1e3 for r in recs[1:])
+    print(f"training_real: median Timing/data {data_ms:.1f} ms against Gmain+Dmain {main_ms:.1f} ms (steps 2-"
+          f"{TRAIN_STEPS}); snapshots at steps {[s for s, _ in saves]} [{tag}]", flush=True)
+    return {"serving_real": launches_s, "training_real": launches_t}
+
+
 def count_down2_classes(torch, fn):
     """Run fn() once more and count its down2 launches by (pad, dtype, input
     shape), through a counting wrapper around the module's launch helper that
@@ -1131,11 +1296,13 @@ def train_card_vs_cpu(torch, tag, label="noaug", ada=None):
     None (no pipe), "debug" (the bgc pipe at debug percentile 0.3 on both
     sides) or "random" (the bgc pipe from p = ADA_P; both trainers draw on
     the host from the same seed, so both get the same draws).  Fast geometry,
-    stacked D calls.  Dmain runs on the G that Gmain updated, and the two
-    sides' G updates differ by ~3e-4 of the step, which moves D(real)'s mean
-    score by ~2e-4 of itself under random draws on an H100: with
-    ADA, Dmain's stats are compared from the gradient pass on the same
-    weights and R1 runs from the same state on both sides."""
+    stacked D calls.  Dmain runs on the G that Gmain updated (D's condition
+    comes from G), and the two sides' G updates differ by ~3e-4 of the step,
+    which moves D(real)'s mean score by ~2e-4 of itself on an H100 (under
+    random ADA draws, and without ADA on the stickman-repaired synthetic
+    batch): so Dmain's stats are compared from the gradient pass on the same
+    weights, R1 runs from the same state on both sides, and the steps
+    themselves are held to STEP_REL_L2."""
     import copy
 
     from pasta_gan_tpu_torch.data.dataset import SyntheticUvitonDataset, collate, erasure_draws, prepare_train_batch
@@ -1171,10 +1338,9 @@ def train_card_vs_cpu(torch, tag, label="noaug", ada=None):
         gc, st_c = tc._grads_with_accum(lc, pc, b_cpu)
         gg, st_g = tg._grads_with_accum(lg, pg, b_gpu)
         g_keys = g_keys or list(st_c)
-        if ada is not None:
-            for k, v in st_c.items():
-                if v.ndim == 0:
-                    close(k, float(st_g[k]), float(v))
+        for k, v in st_c.items():
+            if v.ndim == 0:
+                close(k, float(st_g[k]), float(v))
         floor = 1e-6 * max(float(g.norm()) for g in gc)
         for a, b in zip(gg, gc):
             # a gradient that vanishes in exact arithmetic (a bias in front of an
@@ -1186,20 +1352,14 @@ def train_card_vs_cpu(torch, tag, label="noaug", ada=None):
     before = {n: {k: v.clone() for k, v in getattr(sc, n).state_dict().items()} for n in ("G", "D")}
     stats, r1_states = [], []
     for t, s, b in ((tc, sc, b_cpu), (tg, sg, b_gpu)):
-        if ada is None:
-            s, st = t.train_step(s, b)
-            s, r1 = t.d_r1_step(s, b)
-        else:
-            r1_state, r1 = t.d_r1_step(copy.deepcopy(s), b)
-            r1_states.append(r1_state)
-            s, st = t.train_step(s, b)
-            st = {k: v for k, v in st.items() if k in g_keys or k == "Progress/augment_p"}
+        r1_state, r1 = t.d_r1_step(copy.deepcopy(s), b)
+        r1_states.append(r1_state)
+        s, st = t.train_step(s, b)
+        st = {k: v for k, v in st.items() if k in g_keys or k == "Progress/augment_p"}
         stats.append({k: float(v) for k, v in {**st, **r1}.items()})
     for k, v in stats[0].items():
         close(k, stats[1][k], v)
-    pairs = [("G", sc.G, sg.G), ("D", sc.D, sg.D)]
-    if r1_states:
-        pairs.append(("D by R1", r1_states[0].D, r1_states[1].D))
+    pairs = [("G", sc.G, sg.G), ("D", sc.D, sg.D), ("D by R1", r1_states[0].D, r1_states[1].D)]
     step_errs = {}
     for name, m_c, m_g in pairs:
         ref, sd_c, sd_g = before[name[0]], m_c.state_dict(), m_g.state_dict()
@@ -1245,6 +1405,7 @@ def main():
         launches.update(v18_phase(torch, wk, ck, tag, tmp))
         launches["training"] = train_phase(torch, ck, tag, tmp)
         launches["training_ada"] = train_ada_phase(torch, ck, tag, tmp)
+        launches.update(real_data_phase(torch, ck, tag, tmp))
     train_card_vs_cpu(torch, tag)
     train_card_vs_cpu(torch, tag, "ADA debug percentile", ada="debug")
     train_card_vs_cpu(torch, tag, "ADA random draws", ada="random")

@@ -5,7 +5,7 @@ patches into each person's pose on the device, runs the generator's explicit
 encode_style / encode_pose / map_ws / synthesize sequence, un-pads the
 256x256 canvas to 256x192 and writes `person__garment.png` files.
 
-  python -m pasta_gan_tpu_torch.cli.test --network snapshot.pt --synthetic 16 \\
+  python -m pasta_gan_tpu_torch.cli.test --network snapshot.pt --dataroot /path/to/UPT \\
       --outdir ./test_results --batchsize 16 [--generator v18] [--denorm separate]
 
 `--generator` names the interface: `full` (GeneratorFull, 42-channel style
@@ -15,8 +15,12 @@ the one the snapshot records.  `--denorm` picks the routing's denorm route:
 `fused` (one composite kernel, the default) or `separate` (the denorm_warp
 kernel, then threshold, erosion and composite as separate passes).
 
-This slice serves the synthetic fixture (`--synthetic N`); the real test
-pairs (`--dataroot`), int8 serving and multi-card serving come later.
+`--dataroot DIR` serves the unpaired test pairs of the UPT 256x192 layout
+(`UvitonDataset256Test`: UPT_subset{1,2}_256_192/test_pairs_front_list_shuffle_0508.txt),
+decoded on the host a batch at a time; output files are named
+`<person>__<garment>.png` after the two image names without their
+extensions.  `--synthetic N` serves N synthetic pairs instead; one of the two
+is required.  int8 and multi-card serving come later.
 """
 
 from __future__ import annotations
@@ -92,7 +96,8 @@ def main(argv=None):
 
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--network", required=True, help="network snapshot file (io/checkpoints.py)")
-    p.add_argument("--synthetic", type=int, default=0, help="serve N synthetic person/garment pairs")
+    p.add_argument("--dataroot", default=None, help="root of the UPT 256x192 test layout")
+    p.add_argument("--synthetic", type=int, default=0, help="serve N synthetic person/garment pairs instead")
     p.add_argument("--outdir", required=True)
     p.add_argument("--batchsize", type=int, default=16)
     p.add_argument("--truncation_psi", type=float, default=1.0)
@@ -104,21 +109,34 @@ def main(argv=None):
                         "denorm_warp kernel then separate threshold / erosion / composite passes")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
-    if args.synthetic <= 0:
-        raise SystemExit("--synthetic N is required: real test pairs (--dataroot) are not served yet")
+    if args.synthetic <= 0 and args.dataroot is None:
+        raise SystemExit("--dataroot DIR or --synthetic N is required")
     device = resolve_device(args.device)
 
-    from ..data.dataset import SyntheticUvitonDataset, collate, prepare_tryon_batch, prepare_tryon_batch_v18
+    from ..data.dataset import (
+        SyntheticUvitonDataset, UvitonDataset256Test, collate, prepare_tryon_batch, prepare_tryon_batch_v18,
+    )
 
     os.makedirs(args.outdir, exist_ok=True)
     gen, w_avg = load_generator(args.network, device, args.generator)
     prepare = prepare_tryon_batch_v18 if gen.variant == "v18" else prepare_tryon_batch
-    ds = SyntheticUvitonDataset(num_samples=args.synthetic)
-    pairs = [(ds[i], ds[(i + 1) % len(ds)], f"s{i}", f"s{(i + 1) % len(ds)}") for i in range(len(ds))]
+    if args.synthetic > 0:
+        ds = SyntheticUvitonDataset(num_samples=args.synthetic)
+        n_pairs = len(ds)
+
+        def pair(i):
+            return ds[i], ds[(i + 1) % len(ds)], f"s{i}", f"s{(i + 1) % len(ds)}"
+    else:
+        test_ds = UvitonDataset256Test(args.dataroot)
+        n_pairs = len(test_ds)
+
+        def pair(i):
+            r = test_ds[i]
+            return r["person"], r["garment"], r["person_name"], r["garment_name"]
 
     written = []
-    for i in range(0, len(pairs), args.batchsize):
-        chunk = pairs[i : i + args.batchsize]
+    for i in range(0, n_pairs, args.batchsize):
+        chunk = [pair(k) for k in range(i, min(i + args.batchsize, n_pairs))]
         batch = prepare(collate([c[0] for c in chunk]), collate([c[1] for c in chunk]), device=device,
                         denorm=args.denorm)
         out = tryon_forward(gen, w_avg, batch, args.truncation_psi).float()
@@ -126,7 +144,8 @@ def main(argv=None):
             raise RuntimeError("the generator produced non-finite try-on images")
         out = out.cpu().numpy()
         for j, (_, _, pname, gname) in enumerate(chunk):
-            path = os.path.join(args.outdir, f"{pname}__{gname}.png")
+            name = f"{os.path.basename(pname).split('.')[0]}__{os.path.basename(gname).split('.')[0]}.png"
+            path = os.path.join(args.outdir, name)
             save_image(out[j][:, 32:224, :], path)  # un-pad 256x256 -> 256x192
             written.append(path)
     print(f"wrote {len(written)} try-on images to {args.outdir}")

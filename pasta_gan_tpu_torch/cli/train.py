@@ -6,8 +6,14 @@ the two-pass affine warp, stacked D calls, p adjusted towards `--target`),
 bf16 compute over fp32 master weights by default, and the losses of record
 (L1 40, VGG 40, mask 20, R1 gamma from the preset, R1 every 16 steps):
 
-  python -m pasta_gan_tpu_torch.cli.train --outdir ./runs --synthetic 64 \\
-      --cfg fashion --batch 32 --kimg 0.128 --aug ada
+  python -m pasta_gan_tpu_torch.cli.train --outdir ./runs --data /path/to/UPT \\
+      --cfg fashion --batch 32 --kimg 100 --workers 3 --snap 50 --aug ada
+
+`--data DIR` reads the UPT 256x192 training layout (`UvitonDatasetFull`:
+{Zalando,Zalora,Deepfashion,MPV}_256_192 with their train_pairs_front_list_0508.txt
+and train_random_mask_acgpn/), decoded on the host by `--workers` threads
+ahead of the card; `--synthetic N` trains on N synthetic samples instead.
+One of the two is required.
 
 `--aug fixed` starts at `--p` and, as in the JAX package, runs the same
 controller (ROADMAP notes the difference from the reference, which keeps p
@@ -15,13 +21,13 @@ fixed); `--aug noaug` runs no pipe.  `--ada_exact_geom` swaps the two-pass
 warp for the exact bilinear one and, unless `--ada_stack_calls` is given,
 runs the D calls one by one.
 
-`--kimg` may be fractional (0.128 kimg at batch 32 is 4 steps).  The run
-directory gets training_options.json, stats.jsonl, a network snapshot of
-G_ema (servable by `pasta_gan_tpu_torch.cli.test --network`) and
-train-state-latest.pt (for `--resume`).  Without `--vgg_ckpt` (a
-torchvision vgg19 state_dict already on disk) the perceptual loss uses a
-He-initialized VGG19; nothing is downloaded.  The real dataset (`--data`)
-is not read yet: `--synthetic N` is required.
+`--kimg` and `--kimg_per_tick` may be fractional (0.128 kimg at batch 32 is
+4 steps).  The run directory gets training_options.json, stats.jsonl (one
+line a tick), and every `--snap` ticks and at the end a network snapshot of
+G_ema (network-snapshot-<kimg>.pt, servable by `pasta_gan_tpu_torch.cli.test
+--network`) and train-state-latest.pt (for `--resume`).  Without
+`--vgg_ckpt` (a torchvision vgg19 state_dict already on disk) the perceptual
+loss uses a He-initialized VGG19; nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -47,7 +53,8 @@ def make_run_dir(outdir: str, desc: str) -> str:
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--outdir", required=True)
-    p.add_argument("--synthetic", type=int, default=0, help="train on N synthetic samples (required for now)")
+    p.add_argument("--data", default=None, help="root of the UPT 256x192 training layout")
+    p.add_argument("--synthetic", type=int, default=0, help="train on N synthetic samples instead of --data")
     p.add_argument("--cfg", default="fashion", help="config preset (runtime/config.py:CFG_SPECS)")
     p.add_argument("--batch", type=int, default=None, help="global batch (default: the preset's)")
     p.add_argument("--kimg", type=float, default=None, help="thousands of images to train on")
@@ -69,11 +76,15 @@ def main(argv=None):
     p.add_argument("--l1_weight", type=float, default=40.0)
     p.add_argument("--vgg_weight", type=float, default=40.0)
     p.add_argument("--mask_weight", type=float, default=20.0)
+    p.add_argument("--gamma", type=float, default=None, help="R1 weight (default: the preset's)")
     p.add_argument("--pl_weight", type=float, default=0.0)
     p.add_argument("--contextual_weight", type=float, default=0.0)
     p.add_argument("--vgg_ckpt", default=None, help="torchvision vgg19 state_dict file on disk")
     p.add_argument("--resume", default=None, help="a train-state checkpoint of this package (train-state-*.pt)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--snap", type=int, default=50, help="network snapshot interval in ticks")
+    p.add_argument("--kimg_per_tick", type=float, default=None, help="thousands of images a tick (default: the preset's)")
+    p.add_argument("--workers", type=int, default=None, help="host decode threads (default: the preset's)")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
 
@@ -81,11 +92,11 @@ def main(argv=None):
         raise SystemExit("--pl_weight > 0: path-length regularization (g_pl_step) is a later slice of the port")
     if args.contextual_weight > 0:
         raise SystemExit("--contextual_weight > 0: the contextual loss is a later slice of the port")
-    if args.synthetic <= 0:
-        raise SystemExit("--synthetic N is required: the real dataset (--data) is not read yet")
+    if args.synthetic <= 0 and args.data is None:
+        raise SystemExit("--data DIR or --synthetic N is required")
     device = resolve_device(args.device)
 
-    from ..data.dataset import SyntheticUvitonDataset
+    from ..data.dataset import SyntheticUvitonDataset, UvitonDatasetFull
     from ..runtime.config import from_preset, replace_nested
     from ..train.augment import AUGPIPE_SPECS
     from ..train.loop import training_loop
@@ -99,8 +110,14 @@ def main(argv=None):
         "ada.enabled": args.aug != "noaug", "ada.target": args.target, "ada.pipe": args.augpipe,
         "ada.initial_p": args.p, "ada.fast_geom": not args.ada_exact_geom,
         "ada.stack_calls": args.ada_stack_calls or not args.ada_exact_geom,
-        "random_seed": args.seed, "compute_dtype": args.dtype,
+        "random_seed": args.seed, "compute_dtype": args.dtype, "network_snapshot_ticks": args.snap,
     }
+    if args.gamma is not None:
+        overrides["loss.r1_gamma"] = args.gamma
+    if args.kimg_per_tick is not None:
+        overrides["kimg_per_tick"] = args.kimg_per_tick
+    if args.workers is not None:
+        overrides["data_workers"] = args.workers
     if args.augpipe not in AUGPIPE_SPECS:
         raise SystemExit(f"--augpipe {args.augpipe}: not an ADA pipe preset ({', '.join(AUGPIPE_SPECS)})")
     if args.resume is not None and not os.path.isdir(args.resume):
@@ -125,9 +142,12 @@ def main(argv=None):
             print("WARNING: no --vgg_ckpt; the perceptual loss uses a randomly initialized VGG19")
             vgg = init_vgg19(torch.Generator().manual_seed(0), device)
 
-    run_dir = make_run_dir(args.outdir, f"{args.cfg}-batch{config.batch_size}-synthetic")
-    print(f"run dir: {run_dir}; device: {device}")
-    dataset = SyntheticUvitonDataset(num_samples=args.synthetic, seed=args.seed)
+    if args.synthetic > 0:
+        dataset, desc = SyntheticUvitonDataset(num_samples=args.synthetic, seed=args.seed), "-synthetic"
+    else:
+        dataset, desc = UvitonDatasetFull(args.data, random_seed=args.seed), ""
+    run_dir = make_run_dir(args.outdir, f"{args.cfg}-batch{config.batch_size}{desc}")
+    print(f"run dir: {run_dir}; device: {device}; {len(dataset)} training samples")
     trainer, state, records = training_loop(run_dir, dataset, config, device=device, vgg=vgg,
                                             resume=args.resume, total_kimg=args.kimg)
     return {"run_dir": run_dir, "trainer": trainer, "state": state, "records": records}

@@ -7,18 +7,23 @@ patch routing there; `prepare_tryon_batch_v18` builds the released-256
 checkpoint's batch.  The try-on batches take the routes' `denorm` argument
 ("fused" or "separate", data/warp.py).
 
-The port reads the synthetic fixture only: decoding the real dataset's
-JPEG/PNG files (`load_sample`) waits for a later slice.
+Host side: `load_sample` decodes one UPT person record (JPEG image, OpenPose
+JSON, parsing PNG) with the port's own decoders (`data/image_io.py`, no PIL);
+`UvitonDatasetFull` walks the four 256x192 training lists and
+`UvitonDataset256Test` the unpaired test pairs; `SyntheticUvitonDataset` draws
+a fixture without files.  The 512x320 layout's dataset is a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+import os
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from .. import resolve_device
+from . import image_io
 from . import masks as masks_mod
 from . import stickman
 from .warp import (
@@ -41,9 +46,126 @@ def pad_to_square(img: np.ndarray, value: int) -> tuple[np.ndarray, int]:
     return out, left
 
 
+def host_sample(image: np.ndarray, keypoints: np.ndarray, parsing: np.ndarray,
+                size: tuple[int, int] = (256, 192)) -> Dict[str, np.ndarray]:
+    """The host sample dict of `pasta_gan_tpu/data/dataset.py:load_sample`
+    from an unpadded person: image [H, W, 3] uint8, keypoints [18, 3] and
+    parsing labels [H, W].  The white-padded image, the stickman drawn on the
+    unpadded `size` (H, W) frame then zero-padded, the UNPADDED keypoints
+    (routing adds the pad) with `left_padding`, and the parsing masks built
+    from the padded keypoints and parsing."""
+    image, left = pad_to_square(image, 255)
+    pose, _ = pad_to_square(stickman.draw_pose_from_cords(keypoints, size), 0)
+    parsing, _ = pad_to_square(parsing.astype(np.uint8), 0)
+    kps_padded = keypoints.copy()
+    kps_padded[:, 0] += left
+    m = masks_mod.build_sample_masks(kps_padded, parsing)
+    return dict(
+        image=image.astype(np.uint8),
+        pose=pose.astype(np.uint8),
+        keypoints=keypoints.astype(np.float32),
+        retain_mask=m["retain"].astype(np.uint8),
+        upper_mask=m["upper"].astype(np.uint8),
+        lower_mask=m["lower"].astype(np.uint8),
+        lower_test_mask=m["lower_test"].astype(np.uint8),
+        gt_parsing=m["gt_parsing"][..., 0].astype(np.uint8),
+        left_padding=np.int32(left),
+    )
+
+
+def load_sample(image_path: str, keypoints_path: str, parsing_path: str,
+                size: tuple[int, int] = (256, 192)) -> Dict[str, np.ndarray]:
+    """Decode one person record (`host_sample` of its JPEG, OpenPose JSON and
+    parsing PNG, the parsing's first channel where it has several)."""
+    parsing = image_io.read_image(parsing_path)
+    if parsing.ndim == 3:
+        parsing = parsing[..., 0]
+    return host_sample(image_io.read_rgb(image_path), stickman.load_keypoints(keypoints_path), parsing, size)
+
+
+def record_paths(root: str, ds: str, person: str, parsing_suffix: str = "_label.png"):
+    """(image, keypoints, parsing) paths of `person` ("<name>.jpg") under root/ds."""
+    base = os.path.join(root, ds)
+    return (os.path.join(base, "image", person),
+            os.path.join(base, "keypoints", person.replace(".jpg", "_keypoints.json")),
+            os.path.join(base, "parsing", person.replace(".jpg", parsing_suffix)))
+
+
+class UvitonDatasetFull:
+    """Training records of the UPT 256x192 layout: the persons of
+    {Zalando,Zalora,Deepfashion,MPV}_256_192/train_pairs_front_list_0508.txt
+    (MPV's parsing files end in ".png", the others' in "_label.png"), each with
+    an ACGPN erasure mask from train_random_mask_acgpn/ (sorted names, sample
+    `idx % count`, grey, resized to 256x256, > 0; zeros when the folder is
+    absent).  `random_seed` is the JAX dataset's argument; no draw uses it."""
+
+    DATASETS = ["Zalando_256_192", "Zalora_256_192", "Deepfashion_256_192", "MPV_256_192"]
+
+    def __init__(self, path: str, max_size: Optional[int] = None, random_seed: int = 0):
+        self._records: List[tuple] = []
+        for ds in self.DATASETS:
+            txt = os.path.join(path, ds, "train_pairs_front_list_0508.txt")
+            if not os.path.exists(txt):
+                continue
+            suffix = ".png" if ds == "MPV_256_192" else "_label.png"
+            with open(txt) as f:
+                self._records += [record_paths(path, ds, line.strip().split()[0], suffix) for line in f if line.strip()]
+        if not self._records:
+            raise IOError(f"no training records found under {path}")
+        if max_size is not None:
+            self._records = self._records[:max_size]
+        acgpn_dir = os.path.join(path, "train_random_mask_acgpn")
+        self._acgpn_fnames = (sorted(os.path.join(acgpn_dir, f) for f in os.listdir(acgpn_dir))
+                              if os.path.isdir(acgpn_dir) else [])
+
+    def __len__(self):
+        return len(self._records)
+
+    def _load_acgpn_mask(self, idx: int) -> np.ndarray:
+        if not self._acgpn_fnames:
+            return np.zeros((256, 256, 1), np.uint8)
+        m = image_io.read_l_resized(self._acgpn_fnames[idx % len(self._acgpn_fnames)], (256, 256))
+        return (m[..., None] > 0).astype(np.uint8)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        sample = load_sample(*self._records[idx])
+        sample["acgpn_mask"] = self._load_acgpn_mask(idx)
+        return sample
+
+
+class UvitonDataset256Test:
+    """Unpaired 256 test pairs: person/garment records named by
+    UPT_subset{1,2}_256_192/test_pairs_front_list_shuffle_0508.txt."""
+
+    SUBSETS = ["UPT_subset1_256_192", "UPT_subset2_256_192"]
+
+    def __init__(self, path: str, max_size: Optional[int] = None):
+        self._path = path
+        self._pairs: List[tuple] = []
+        for ds in self.SUBSETS:
+            txt = os.path.join(path, ds, "test_pairs_front_list_shuffle_0508.txt")
+            if not os.path.exists(txt):
+                continue
+            with open(txt) as f:
+                self._pairs += [(ds, *parts[:2]) for parts in (line.strip().split() for line in f) if len(parts) >= 2]
+        if not self._pairs:
+            raise IOError(f"no test pairs found under {path}")
+        if max_size is not None:
+            self._pairs = self._pairs[:max_size]
+
+    def __len__(self):
+        return len(self._pairs)
+
+    def __getitem__(self, idx: int):
+        ds, person, garment = self._pairs[idx]
+        return dict(person=load_sample(*record_paths(self._path, ds, person)),
+                    garment=load_sample(*record_paths(self._path, ds, garment)),
+                    person_name=person, garment_name=garment)
+
+
 class SyntheticUvitonDataset:
     """Deterministic synthetic person fixture: plausible keypoints and simple
-    parsing geometry (the JAX package's fixture, numpy drawing branches)."""
+    parsing geometry (the JAX package's fixture)."""
 
     BASE_KPS = {
         0: (96, 40), 1: (96, 70), 2: (70, 72), 3: (60, 105), 4: (56, 140),
@@ -100,27 +222,9 @@ class SyntheticUvitonDataset:
             image[parsing == label] = colors[label % 20]
         image = np.clip(image.astype(np.int32) + rng.integers(-12, 12, image.shape), 0, 255).astype(np.uint8)
 
-        image_p, left = pad_to_square(image, 255)
-        parsing_p, _ = pad_to_square(parsing, 0)
-        pose = stickman.draw_pose_from_cords(kps, (256, 192))
-        pose_p, _ = pad_to_square(pose, 0)
-
-        kps_padded = kps.copy()
-        kps_padded[:, 0] += left
-        m = masks_mod.build_sample_masks(kps_padded, parsing_p)
-
-        return dict(
-            image=image_p,
-            pose=pose_p,
-            keypoints=kps,
-            retain_mask=m["retain"].astype(np.uint8),
-            upper_mask=m["upper"].astype(np.uint8),
-            lower_mask=m["lower"].astype(np.uint8),
-            lower_test_mask=m["lower_test"].astype(np.uint8),
-            gt_parsing=m["gt_parsing"][..., 0].astype(np.uint8),
-            acgpn_mask=np.zeros((256, 256, 1), np.uint8),
-            left_padding=np.int32(left),
-        )
+        sample = host_sample(image, kps, parsing)
+        sample["acgpn_mask"] = np.zeros((256, 256, 1), np.uint8)
+        return sample
 
 
 def collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:

@@ -1,9 +1,11 @@
 """Parsing-label mask builders + palm-mask geometry.
 
-Copy of `pasta_gan_tpu/data/masks.py` with only its numpy branches (no cv2,
-no native extension).  Counterpart of the reference `training/dataset.py:538-560` (label groupings) and
-`:619-700` (palm mask via rectangle polygons + dilation), with pycocotools
-replaced by a numpy polygon fill.
+Counterpart of `pasta_gan_tpu/data/masks.py` on its default branch, the
+native host library's polygon fill and box dilation (`pasta_gan_tpu/native/
+host_ops.cpp`), reproduced in numpy without importing either.  Counterpart of
+the reference `training/dataset.py:538-560` (label groupings) and `:619-700`
+(palm mask via rectangle polygons + dilation), with pycocotools replaced by a
+scanline polygon fill.
 
 19-label human-parsing groupings of record:
   retain  = shoes(18,19) + head(1,2,4,13) + palm (geometry-derived)
@@ -57,34 +59,47 @@ def parsing_masks(parsing: np.ndarray) -> dict:
 
 
 def _fill_polygon(points: np.ndarray, img_h: int, img_w: int) -> np.ndarray:
-    """Binary polygon fill [H, W, 1] float32 (replaces pycocotools frPyObjects):
-    the JAX package's numpy even-odd scanline branch."""
-    mask = np.zeros((img_h, img_w), np.float32)
-    ys, xs = np.mgrid[:img_h, :img_w]
-    n = len(points)
-    inside = np.zeros((img_h, img_w), bool)
-    j = n - 1
-    for i in range(n):
-        xi, yi = points[i]
-        xj, yj = points[j]
-        cond = ((points[i][1] > ys) != (points[j][1] > ys)) & (
-            xs < (xj - xi) * (ys - yi) / (yj - yi + 1e-12) + xi
-        )
-        inside ^= cond
-        j = i
-    mask[inside] = 1.0
-    return mask[..., None]
+    """Binary polygon fill [H, W, 1] float32 (replaces pycocotools
+    frPyObjects): the JAX package's native scanline fill
+    (`pasta_gan_tpu/native/host_ops.cpp:fill_polygon_f32`), row for row.
+    Each row y is cut at y + 0.5 in double precision, the crossings are
+    sorted and paired, and a pair fills ceil(x0 - 0.5) .. floor(x1 - 0.5)
+    clipped to the frame."""
+    pts = np.asarray(points, np.float64)
+    xi, yi = pts[:, 0:1], pts[:, 1:2]  # [n, 1]: edge i runs from point i-1 to point i
+    xj, yj = np.roll(xi, 1, axis=0), np.roll(yi, 1, axis=0)
+    yc = np.arange(img_h, dtype=np.float64)[None] + 0.5  # [1, H]
+    crosses = (yi > yc) != (yj > yc)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        xs = np.where(crosses, xi + (yc - yi) * (xj - xi) / (yj - yi), np.inf)
+    xs = np.sort(xs, axis=0)
+    cols = np.arange(img_w)
+    mask = np.zeros((img_h, img_w), bool)
+    for k in range(0, len(pts) - 1, 2):
+        a, b = xs[k], xs[k + 1]
+        live = np.isfinite(b)
+        x0 = np.where(live, np.maximum(0, np.ceil(np.where(live, a, 0) - 0.5)), img_w)
+        x1 = np.where(live, np.minimum(img_w - 1, np.floor(np.where(live, b, 0) - 0.5)), -1)
+        mask |= (cols >= x0[:, None]) & (cols <= x1[:, None])
+    return mask.astype(np.float32)[..., None]
 
 
 def _dilate(mask: np.ndarray, ksize: int) -> np.ndarray:
-    """Binary dilation with a ksize x ksize box (cv2.dilate equivalent): the JAX
-    package's numpy sliding-window branch."""
-    from numpy.lib.stride_tricks import sliding_window_view
-
-    pad = ksize // 2
-    m = np.pad(mask[..., 0], pad, mode="constant")
-    win = sliding_window_view(m, (ksize, ksize))[: mask.shape[0], : mask.shape[1]]
-    return win.max(axis=(-1, -2)).astype(np.float32)[..., None]
+    """Box dilation [H, W, 1] float32 (cv2.dilate's anchor): the JAX package's
+    native `dilate_box_f32` (`host_ops.cpp`), a row max then a column max over
+    [x - k//2, x + k - 1 - k//2], clipped to the frame and started at 0."""
+    m = np.asarray(mask, np.float32)[..., 0]
+    h, w = m.shape
+    r = ksize // 2
+    for axis, n in ((1, w), (0, h)):
+        pad = [(0, 0), (0, 0)]
+        pad[axis] = (r, ksize - 1 - r)
+        p = np.pad(m, pad)  # zeros: the native max starts at 0
+        out = np.zeros_like(m)
+        for d in range(ksize):
+            np.maximum(out, p[:, d : d + n] if axis == 1 else p[d : d + n], out=out)
+        m = out
+    return m[..., None]
 
 
 def get_rectangle_mask(a, b, c, d, img_h: int, img_w: int) -> np.ndarray:

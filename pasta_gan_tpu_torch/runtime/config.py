@@ -110,7 +110,7 @@ class TrainConfig:
     ema_rampup: Optional[float] = None
     w_avg_beta: float = 0.995
     accum_steps: int = 1  # gradient-accumulation microbatches per phase
-    kimg_per_tick: int = 4
+    kimg_per_tick: float = 4  # fractional in the port, so a short run can see several ticks
     image_snapshot_ticks: int = 50
     network_snapshot_ticks: int = 50
     tryon_grid_n: int = 6

@@ -1,25 +1,32 @@
 """Training loop (counterpart of `pasta_gan_tpu/train/loop.py`).
 
-One process, one card: host samples are drawn in the JAX loader's order
-(per-epoch permutations from `(seed, epoch)`), routed on the card by
-`prepare_train_batch`, then Gmain + Dmain (`train_step`) every step and R1
-(`d_r1_step`) every `d_reg_interval` steps, from the first.  Each tick
-prints one stats line and appends one JSON line to `stats.jsonl`; the run
-ends with a network snapshot of G_ema (what `cli/test.py` serves) and a
-train-state checkpoint (what `--resume` reads).
+One process, one card: host samples come from `InfiniteLoader` in the JAX
+loader's order (per-epoch permutations from `(seed, epoch)`, batches built
+ahead by worker processes), are routed on the card by `prepare_train_batch`,
+then Gmain + Dmain (`train_step`) every step and R1 (`d_r1_step`) every
+`d_reg_interval` steps, from the first.  Each tick prints one stats line and
+appends one JSON line to `stats.jsonl`.  Every `network_snapshot_ticks` ticks
+(tick > 0), and when the run ends, it saves a network snapshot of G_ema
+(`network-snapshot-<kimg>.pt`, what `cli/test.py` serves) and a train-state
+checkpoint (`train-state-latest.pt`, what `--resume` reads).
 
 Phase times are host wall times of work that ends in a synchronise (the
 stats read back each step), so they are what the card took plus what the
-host added.
+host added; `Timing/data` is the wait for the loader plus the routing.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
 import os
+import queue
+import threading
 import time
-from typing import Dict, Iterator, List, Optional
+import traceback
+from multiprocessing import shared_memory
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -30,20 +37,170 @@ from ..runtime.config import TrainConfig, to_json
 from .step import GANTrainer
 
 
-def batch_indices(n: int, batch_size: int, seed: int) -> Iterator[List[int]]:
-    """Endless dataset indices, `batch_size` at a time: the stream of
-    per-epoch permutations `np.random.default_rng((seed, epoch))`."""
+def batch_indices(n: int, batch_size: int, seed: int, b: int) -> List[int]:
+    """Dataset indices of batch b: stream positions b*batch_size ... of the
+    per-epoch permutations `np.random.default_rng((seed, epoch)).permutation(n)`."""
     perms: Dict[int, np.ndarray] = {}
-    pos = 0
-    while True:
-        out = []
-        for _ in range(batch_size):
-            e = pos // n
-            if e not in perms:
-                perms = {e: np.random.default_rng((seed, e)).permutation(n)}
-            out.append(int(perms[e][pos % n]))
-            pos += 1
-        yield out
+    out = []
+    for pos in range(b * batch_size, (b + 1) * batch_size):
+        e = pos // n
+        if e not in perms:
+            perms[e] = np.random.default_rng((seed, e)).permutation(n)
+        out.append(int(perms[e][pos % n]))
+    return out
+
+
+def _to_shared(batch: Dict[str, np.ndarray]):
+    """Copy a collated batch into a new shared-memory block; returns (block
+    name, [(key, shape, dtype, offset)]).  The receiver unlinks the block."""
+    size = sum(v.nbytes for v in batch.values())
+    shm = shared_memory.SharedMemory(create=True, size=max(size, 1))
+    layout, off = [], 0
+    for k, v in batch.items():
+        np.ndarray(v.shape, v.dtype, buffer=shm.buf, offset=off)[...] = v
+        layout.append((k, v.shape, v.dtype.str, off))
+        off += v.nbytes
+    shm.close()
+    return shm.name, layout
+
+
+def _from_shared(name: str, layout) -> Dict[str, np.ndarray]:
+    """The batch a worker wrote into block `name`, copied out; the block is unlinked."""
+    shm = shared_memory.SharedMemory(name=name)
+    try:
+        return {k: np.ndarray(shape, np.dtype(dt), buffer=shm.buf, offset=off).copy() for k, shape, dt, off in layout}
+    finally:
+        shm.close()
+        shm.unlink()
+
+
+def _loader_worker(dataset, batch_size: int, seed: int, wid: int, num_workers: int, out, stop) -> None:
+    """Build batches wid, wid + num_workers, ... into `out` (blocks when full)
+    until `stop` is set; a failure is sent as its traceback."""
+    b = wid
+    try:
+        while not stop.is_set():
+            batch = collate([dataset[i] for i in batch_indices(len(dataset), batch_size, seed, b)])
+            out.put(("batch", _to_shared(batch)))
+            b += num_workers
+    except Exception:
+        out.put(("error", traceback.format_exc()))
+
+
+class InfiniteLoader:
+    """Endless shuffled batches of collated host samples, built ahead by
+    `num_workers` worker processes (the counterpart of `pasta_gan_tpu/train/
+    loop.py:InfiniteLoader` on one process, which uses threads).
+
+    Batch b holds the dataset indices `batch_indices(len(dataset),
+    batch_size, seed, b)`.  Worker w builds the batches b = w (mod
+    num_workers) in order and writes each into a shared-memory block, whose
+    name goes into the worker's own bounded queue of
+    ceil((prefetch + num_workers) / num_workers) batches; a receiving thread
+    takes batch b from queue b mod num_workers, so batches come out in order
+    of b, copies it out of the block and holds up to 2 batches for
+    `__next__`.  Why processes and shared memory (PERF.md, PR 8, on an H100
+    machine): threads building samples hold the interpreter lock for most
+    of a sample's ~12 ms and slowed the loop's own kernel dispatch (53-88x
+    in `scripts/loader_contention.py`; Gmain+Dmain 807-966 ms against 650);
+    batches pickled through the queues left 67-92 ms of `Timing/data` a
+    step, shared-memory blocks 24-29 ms (the routing alone).
+    The workers are started with "spawn" (the parent holds CUDA and threads),
+    so `dataset` must pickle.  A worker's failure is raised by `__next__`
+    with its traceback; `close()` (or leaving a `with` block) stops them and
+    unlinks every block still queued."""
+
+    def __init__(self, dataset, batch_size: int, seed: int = 0, prefetch: int = 4, num_workers: int = 1):
+        self.num_workers = max(1, num_workers)
+        ctx = multiprocessing.get_context("spawn")
+        depth = -(-(prefetch + self.num_workers) // self.num_workers)
+        self._stop_workers = ctx.Event()
+        self._queues = [ctx.Queue(maxsize=depth) for _ in range(self.num_workers)]
+        self._procs = [ctx.Process(target=_loader_worker, daemon=True,
+                                   args=(dataset, batch_size, seed, w, self.num_workers, q, self._stop_workers))
+                       for w, q in enumerate(self._queues)]
+        for p in self._procs:
+            p.start()
+        self._ready: queue.Queue = queue.Queue(maxsize=2)
+        self._stop = threading.Event()
+        self._receiver = threading.Thread(target=self._receive, daemon=True)
+        self._receiver.start()
+
+    def _receive(self) -> None:
+        b = 0
+        try:
+            while not self._stop.is_set():
+                w = b % self.num_workers
+                try:
+                    kind, payload = self._queues[w].get(timeout=0.5)
+                except queue.Empty:
+                    if self._procs[w].is_alive():
+                        continue
+                    kind, payload = "error", f"loader worker {w} exited (code {self._procs[w].exitcode}) before batch {b}"
+                if kind == "batch":
+                    payload = _from_shared(*payload)
+                elif not payload.startswith("loader worker"):
+                    payload = f"loader worker {w} failed building batch {b}:\n{payload}"
+                self._put((kind, payload))
+                if kind == "error":
+                    return
+                b += 1
+        except Exception:  # handed to the consumer, which raises it
+            self._put(("error", f"the loader's receiving thread failed at batch {b}:\n{traceback.format_exc()}"))
+
+    def _put(self, item) -> None:
+        while not self._stop.is_set():
+            try:
+                self._ready.put(item, timeout=0.5)
+                return
+            except queue.Full:
+                continue
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Dict[str, np.ndarray]:
+        kind, payload = self._ready.get()
+        if kind == "error":
+            self._ready.put((kind, payload))  # every later call raises it too
+            raise RuntimeError(payload)
+        return payload
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def _drain(self) -> None:
+        for q in self._queues:
+            while True:
+                try:
+                    kind, payload = q.get_nowait()
+                except queue.Empty:
+                    break
+                if kind == "batch":
+                    _from_shared(*payload)
+
+    def close(self) -> None:
+        """Stop the receiver and the workers; a worker blocked on its full
+        queue is let finish its put, whose block is unlinked here."""
+        self._stop.set()
+        self._receiver.join(timeout=60)
+        self._stop_workers.set()
+        deadline = time.time() + 30
+        while any(p.is_alive() for p in self._procs) and time.time() < deadline:
+            self._drain()
+            for p in self._procs:
+                p.join(timeout=0.05)
+        for p in self._procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=60)
+        self._drain()
+        for q in self._queues:
+            q.close()
+            q.cancel_join_thread()
 
 
 def _sync(device: torch.device) -> None:
@@ -54,6 +211,15 @@ def _sync(device: torch.device) -> None:
 def _mean(records: List[Dict[str, float]], key: str) -> float:
     vals = [r[key] for r in records if key in r]
     return float(np.mean(vals)) if vals else float("nan")
+
+
+def _save_snapshot(run_dir: str, state, config: TrainConfig, cur_nimg: int, verbose: bool) -> None:
+    snap = os.path.join(run_dir, f"network-snapshot-{cur_nimg // 1000:06d}.pt")
+    save_snapshot(snap, state.G_ema.state_dict(), state.w_avg,
+                  {"model": state.G_ema.config, "generator": state.G_ema.variant})
+    save_train_state(os.path.join(run_dir, "train-state-latest.pt"), state, dataclasses.asdict(config))
+    if verbose:
+        print(f"saved {snap} and train-state-latest.pt at step {state.step}", flush=True)
 
 
 def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg=None,
@@ -75,66 +241,61 @@ def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg
         if verbose:
             print(f'Resumed from "{resume}" at step {state.step}')
 
-    indices = batch_indices(len(dataset), config.batch_size, config.random_seed)
     data_gen = torch.Generator().manual_seed(config.random_seed + 1)
     d_reg_interval = config.d_reg_interval or 0
+    snap_ticks = config.network_snapshot_ticks
     cur_nimg = state.step * config.batch_size
     tick_start_nimg, cur_tick, batch_idx = cur_nimg, 0, 0
     start_time = tick_start_time = time.time()
     records: List[Dict[str, float]] = []
     tick_records: List[Dict[str, float]] = []
-    stats_file = open(os.path.join(run_dir, "stats.jsonl"), "a")
     if verbose:
         print(f"Training for {total_kimg} kimg (batch {config.batch_size}) on {device}...")
+    loader = InfiniteLoader(dataset, config.batch_size, seed=config.random_seed, num_workers=config.data_workers)
+    with loader, open(os.path.join(run_dir, "stats.jsonl"), "a") as stats_file:
+        while True:
+            t0 = time.time()
+            batch = prepare_train_batch(next(loader), data_gen, device=device)
+            _sync(device)
+            t_data = time.time()
+            state, stats = trainer.train_step(state, batch)
+            rec = {k: float(v) for k, v in stats.items()}
+            t_main = time.time()
+            rec["Timing/data"] = t_data - t0
+            rec["Timing/Gmain_Dmain"] = t_main - t_data
+            if d_reg_interval and batch_idx % d_reg_interval == 0:
+                state, r1_stats = trainer.d_r1_step(state, batch)
+                rec.update({k: float(v) for k, v in r1_stats.items()})
+                rec["Timing/Dreg"] = time.time() - t_main
+            records.append(rec)
+            tick_records.append(rec)
+            cur_nimg += config.batch_size
+            batch_idx += 1
 
-    while True:
-        t0 = time.time()
-        host = collate([dataset[i] for i in next(indices)])
-        batch = prepare_train_batch(host, data_gen, device=device)
-        _sync(device)
-        t_data = time.time()
-        state, stats = trainer.train_step(state, batch)
-        rec = {k: float(v) for k, v in stats.items()}
-        t_main = time.time()
-        rec["Timing/data"] = t_data - t0
-        rec["Timing/Gmain_Dmain"] = t_main - t_data
-        if d_reg_interval and batch_idx % d_reg_interval == 0:
-            state, r1_stats = trainer.d_r1_step(state, batch)
-            rec.update({k: float(v) for k, v in r1_stats.items()})
-            rec["Timing/Dreg"] = time.time() - t_main
-        records.append(rec)
-        tick_records.append(rec)
-        cur_nimg += config.batch_size
-        batch_idx += 1
+            done = cur_nimg >= total_kimg * 1000
+            if not done and cur_tick != 0 and cur_nimg < tick_start_nimg + config.kimg_per_tick * 1000:
+                continue
 
-        done = cur_nimg >= total_kimg * 1000
-        if not done and cur_tick != 0 and cur_nimg < tick_start_nimg + config.kimg_per_tick * 1000:
-            continue
-
-        tick_end = time.time()
-        sec_per_tick = tick_end - tick_start_time
-        sec_per_kimg = sec_per_tick / max((cur_nimg - tick_start_nimg) / 1000.0, 1e-8)
-        line = {k: _mean(tick_records, k) for k in sorted({k for r in tick_records for k in r})}
-        line.update({"Progress/tick": cur_tick, "Progress/kimg": cur_nimg / 1e3, "Progress/step": state.step,
-                     "Timing/sec_per_tick": sec_per_tick, "Timing/sec_per_kimg": sec_per_kimg,
-                     "Timing/total_sec": tick_end - start_time})
-        stats_file.write(json.dumps(line) + "\n")
-        stats_file.flush()
-        if verbose:
-            r1 = f" r1 {line['Loss/r1_penalty']:.4g}" if "Loss/r1_penalty" in line else ""  # only ticks that ran R1
-            print(f"tick {cur_tick:<5d} kimg {cur_nimg / 1e3:<8.3f} step {state.step:<6d} "
-                  f"time {tick_end - start_time:<8.1f}s sec/kimg {sec_per_kimg:<8.2f} "
-                  f"augment {line['Progress/augment_p']:.3f} G/loss {line['Loss/G/loss']:.3f} D/loss {line['Loss/D/loss']:.3f}{r1}", flush=True)
-        cur_tick += 1
-        tick_start_nimg, tick_start_time, tick_records = cur_nimg, time.time(), []
-        if done:
-            break
-    stats_file.close()
-
-    snap = os.path.join(run_dir, f"network-snapshot-{int(cur_nimg // 1000):06d}.pt")
-    save_snapshot(snap, state.G_ema.state_dict(), state.w_avg,
-                  {"model": state.G_ema.config, "generator": state.G_ema.variant})
-    save_train_state(os.path.join(run_dir, "train-state-latest.pt"), state, dataclasses.asdict(config))
-    if verbose:
-        print(f"saved {snap} and train-state-latest.pt")
+            tick_end = time.time()
+            sec_per_tick = tick_end - tick_start_time
+            sec_per_kimg = sec_per_tick / max((cur_nimg - tick_start_nimg) / 1000.0, 1e-8)
+            line = {k: _mean(tick_records, k) for k in sorted({k for r in tick_records for k in r})}
+            line.update({"Progress/tick": cur_tick, "Progress/kimg": cur_nimg / 1e3, "Progress/step": state.step,
+                         "Timing/sec_per_tick": sec_per_tick, "Timing/sec_per_kimg": sec_per_kimg,
+                         "Timing/total_sec": tick_end - start_time})
+            stats_file.write(json.dumps(line) + "\n")
+            stats_file.flush()
+            if verbose:
+                r1 = f" r1 {line['Loss/r1_penalty']:.4g}" if "Loss/r1_penalty" in line else ""  # only ticks that ran R1
+                print(f"tick {cur_tick:<5d} kimg {cur_nimg / 1e3:<8.3f} step {state.step:<6d} "
+                      f"time {tick_end - start_time:<8.1f}s sec/kimg {sec_per_kimg:<8.2f} "
+                      f"augment {line['Progress/augment_p']:.3f} G/loss {line['Loss/G/loss']:.3f} "
+                      f"D/loss {line['Loss/D/loss']:.3f}{r1}", flush=True)
+            # the JAX loop's cadence; the port also saves a run that ends in tick 0
+            if done or (snap_ticks and cur_tick > 0 and cur_tick % snap_ticks == 0):
+                _save_snapshot(run_dir, state, config, cur_nimg, verbose)
+            cur_tick += 1
+            tick_start_nimg, tick_start_time, tick_records = cur_nimg, time.time(), []
+            if done:
+                break
     return trainer, state, records

@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions: the three
 routing kernels (norm_warp at 4 and 8 channels, composite, denorm_warp with
-both borders) and the two FIR resampling kernels (up2, down2).
+both borders) and the two FIR resampling kernels (up2, down2); norm_warp and
+composite also on the routing operands of the real fixture pairs
+(tests/fixtures/upt_mini, decoded by the port without PIL).
 
 This file imports no JAX, so it also runs on a machine with an NVIDIA GPU
 and no JAX:
@@ -556,6 +558,31 @@ def test_registry_holds_every_kernel_once():
     assert sorted(ck.KERNELS) == ["composite", "denorm_warp", "down2", "norm_warp", "up2"]
     for k in ck.KERNELS.values():
         assert os.path.exists(k.source_path), k.source
+
+
+@pytest.mark.cuda
+def test_routing_kernels_on_real_fixture_pairs(cuda_device):
+    """norm_warp (bit for bit) and composite (TOL, pixels near the saturation
+    threshold left out) on the routing operands of real test pairs, decoded
+    from tests/fixtures/upt_mini by the port alone."""
+    from pasta_gan_tpu_torch.data import dataset as tds
+
+    ds = tds.UvitonDataset256Test(os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "upt_mini"))
+    pairs = [ds[i] for i in range(8)]
+    r = tds.tryon_warp_inputs(tds.collate([p["person"] for p in pairs]), tds.collate([p["garment"] for p in pairs]),
+                              device=cuda_device)
+    patches = _norm_exact((r["src_u"], r["src_l"], r["minv_norm"], r["valid_norm"], r["n_upper"], r["patch_hw"]))
+    cargs = (patches, r["minv_denorm"], r["valid_denorm"], r["frame_hw"], r["groups"], r["erode_parts"],
+             r["hand_parts"])
+    g, h = wk.composite(*cargs)
+    g_p, h_p = wk.composite_reference(*cargs)
+    m = wk.denorm_warp_reference(patches, r["minv_denorm"], r["valid_denorm"], r["frame_hw"])[:, :, 3]
+    near = ((m - wk.MASK_SATURATION_THRESHOLD).abs() <= 1e-5).float()
+    ero = [p for p, e in enumerate(r["erode_parts"]) if e]
+    near[:, ero] = torch.nn.functional.max_pool2d(near[:, ero], 5, stride=1, padding=2)
+    keep = (near.amax(dim=1) == 0).float()
+    assert float(((g - g_p).abs() * keep[:, None, None]).max()) <= TOL
+    assert float(((h - h_p).abs() * keep[:, None]).max()) <= TOL
 
 
 def test_library_name_hashes_the_shared_headers(tmp_path, monkeypatch):
