@@ -13,10 +13,16 @@ Phases, each fatal on failure:
    norm_warp also at the training step's batch 32 (self route) and the Full
    route's batch 1, each norm_warp case bit-exact and beside a memset of
    its output, and
+   the routing kernels at the 512 route's batch-8 shapes from the fixture's
+   512x320 pairs (norm_warp N 15, n0 10, 128x128 patches; composite 15
+   parts, 2 groups, all eroded, no hands; denorm_warp [8,15,4,512,512]),
+   each bit-exact, and
    the FIR kernels at the training path's largest shapes (up2 pre-FIR
    [16,128,128,128], down2 [32,64,256,256]), up2 at the serving path's most
-   launched up-conv shapes and D's backward, and down2 at every class of the
-   training step, each against its plain PyTorch version on the card (fp32
+   launched up-conv shapes and D's backward, down2 at every class of the
+   training step, and up2 and down2 at every class one batch-8 forward of
+   the full-width Generator512 gives them (counted in that forward), each
+   against its plain PyTorch version on the card (fp32
    with TF32 off, and bf16), with times from CUDA events (L2 flushed before
    each launch; mean and median of 20; through the Python wrapper and
    through the C entry point alone), the byte/operation
@@ -39,25 +45,35 @@ Phases, each fatal on failure:
    card's routing and a thin V18 forward against the CPU path, and the
    end-to-end V18 try-on is timed and profiled on both routes at batch 16
    and 1.
-5. Training phase: `pasta_gan_tpu_torch.cli.train.main` trains the
+5. 512x320 serving phase (`serving_512`): a full-width Generator512
+   snapshot (channel_base 32768, channel_max 512, start 8) is served through
+   `cli.test_512.main --dataroot` on the fixture's 8 test pairs for each
+   `--change_region`, on `--denorm fused` and `separate` (8 triptychs of
+   512x960 a run).  The two routes' batches are held against each other on
+   the card for every region, the card's routing and a thin Generator512
+   forward against the CPU path, the bf16 forward against the fp32 one at
+   batch 8, and the end-to-end try-on is timed and profiled at batch 8 and
+   1.
+6. Training phase: `pasta_gan_tpu_torch.cli.train.main` trains the
    full-width `fashion` G and D (random init from seed 0, He-initialized
    VGG19) for 4 steps at batch 32 in bf16, R1 on the first, on 64 synthetic
-   samples; losses must be finite, G, D and G_ema must move.  It prints the
-   Gmain+Dmain and R1 step times, sec/kimg, peak memory and a
-   `torch.profiler` breakdown of one step.
-6. ADA training phase (`training_ada`): the same run with `--aug ada --p 0.5`
+   samples, with the image grids every tick (`--img_snap 1`); losses must be
+   finite, G, D and G_ema must move, every grid PNG must decode at its
+   shape.  It prints the Gmain+Dmain and R1 step times, sec/kimg, peak
+   memory and a `torch.profiler` breakdown of one step.
+7. ADA training phase (`training_ada`): the same run with `--aug ada --p 0.5`
    (the `bgc` pipe, the two-pass warp, stacked D calls, R1 through the
-   pipe); besides the checks of phase 5, `Progress/augment_p` must follow
+   pipe); besides the checks of phase 6, `Progress/augment_p` must follow
    the controller's arithmetic.  It prints the same times and profile, the
    pipe's own time per call (Dmain's 96 stacked images forward, Gmain's 64
    forward and backward, R1's 32), and then runs three steps with
    `--ada_exact_geom` (D calls one by one), printing their time and peak
    memory, or that they do not fit.
-7. Card against CPU: one fp32 training step (Gmain, Dmain, R1) at a thin
+8. Card against CPU: one fp32 training step (Gmain, Dmain, R1) at a thin
    width is held against the same step on the port's CPU path, without ADA,
    with the debug-percentile `bgc` pipe and with random draws (the pipe
    draws on the host, so one seed gives both sides the same draws).
-8. Real-data phase (`real_data`, on the committed fixture tree
+9. Real-data phase (`real_data`, on the committed fixture tree
    tests/fixtures/upt_mini, whose MANIFEST.json holds the digests of PIL's
    decoded arrays and of the JAX package's `load_sample`, neither of which
    this machine has): every file decoded and every record loaded by the
@@ -68,8 +84,9 @@ Phases, each fatal on failure:
    (`serving_real`, PNGs named by the JAX rule) and the try-on is timed at
    batch 16 with the host loading inside the timed call and with the batch
    loaded beforehand; `cli.train --data --workers 3 --aug noaug` trains 4
-   full-width steps at batch 32 (`training_real`), one tick a step and
-   `--snap 2`, so a snapshot is saved at step 3 and at the end, printing
+   full-width steps at batch 32 (`training_real`), one tick a step,
+   `--snap 2` (a snapshot is saved at step 3 and at the end) and no image
+   grids (`--img_snap 0`, so no grid save gives the loader slack), printing
    `Timing/data` beside Gmain+Dmain for each step.
 Each path's launch counts are set to 0 just before it runs and read just
 after; each path must launch exactly its kernels (`PATH_KERNELS`).  The
@@ -112,8 +129,9 @@ REPLACES = {"norm_warp": "pasta_gan_tpu/ops/pallas_warp.py:172",
 BF16_REL_L2 = 0.1
 # the kernels each driven path launches (and no other)
 FUSED = {"norm_warp", "composite", "up2", "down2"}
-PATH_KERNELS = {"serving_full": FUSED, "serving_v18_fused": FUSED,
-                "serving_v18_separate": {"norm_warp", "denorm_warp", "up2", "down2"}, "training": FUSED,
+SEPARATE = {"norm_warp", "denorm_warp", "up2", "down2"}
+PATH_KERNELS = {"serving_full": FUSED, "serving_v18_fused": FUSED, "serving_v18_separate": SEPARATE,
+                "serving_512_fused": FUSED, "serving_512_separate": SEPARATE, "training": FUSED,
                 "training_ada": FUSED, "serving_real": FUSED, "training_real": FUSED}
 FIXTURE = os.path.join("tests", "fixtures", "upt_mini")  # the UPT-layout fixture tree, relative to this script
 
@@ -411,99 +429,64 @@ def kernel_phase(torch, wk, tag):
                    "training b32", tag, plain_iters=5)
     del train, image, um, lm
     norm_warp_case(torch, wk, ck, tryon_warp_inputs(collate([ds[0]]), collate([ds[1]]), device="cuda"), "Full b1", tag)
-    N = r["minv_norm"].shape[1]
-
     # ---- composite (fed the plain norm output, so both sides see the same patches)
-    cargs = (out_p, r["minv_denorm"], r["valid_denorm"], r["frame_hw"], r["groups"],
-             r["erode_parts"], r["hand_parts"])
-    g_k, h_k = wk.composite(*cargs)
-    g_p, h_p = wk.composite_reference(*cargs)
-    torch.cuda.synchronize()
-    near = near_threshold_pixels(torch, wk, out_p, r["minv_denorm"], r["valid_denorm"],
-                                 r["frame_hw"], r["erode_parts"])
-    keep = ~near
-    err = max(float(((g_k - g_p).abs() * keep[:, None, None]).max()),
-              float(((h_k - h_p).abs() * keep[:, None]).max()))
-    assert err <= TOL, f"composite disagrees with its plain version: {err}"
-    n_excl = int(near.sum())
-    Hf, Wf = r["frame_hw"]
-    n_valid = int(r["valid_denorm"].sum())
-    n_ero = int(sum(r["erode_parts"][p] * r["valid_denorm"][:, p].sum().item() for p in range(N)))
-    patch_bytes = composite_patch_bytes(torch, wk, out_p, r["minv_denorm"], r["valid_denorm"], r["frame_hw"],
-                                        r["groups"], r["erode_parts"])
-    byts = patch_bytes + nbytes(r["minv_denorm"], r["valid_denorm"], g_k, h_k)
-    # per valid (sample, part): coordinates + mask blend (~21 flops) per frame pixel,
-    # a 5x5 min (~8 flops) per pixel of eroded parts, and the 3-channel blend where saturated
-    sat_px = int((wk.denorm_warp_reference(out_p, r["minv_denorm"], r["valid_denorm"], r["frame_hw"])[:, :, 3]
-                  >= wk.MASK_SATURATION_THRESHOLD).sum())
-    ops = n_valid * Hf * Wf * 21 + n_ero * Hf * Wf * 8 + sat_px * 27
-    launch, outs_e = composite_entry(torch, ck, cargs)
-    et = entry_times(torch, launch, outs_e, (g_k, h_k))
-    results["composite"] = dict(
-        err=err, **kernel_times(torch, lambda: wk.composite(*cargs), lambda: wk.composite_reference(*cargs)),
-        **et, bytes=byts, ops=ops,
-        extra=(f"entry ms {et['entry_ms']:.4f} (median {et['entry_median']:.4f}); patch sectors read "
-               f"{patch_bytes / 1e6:.2f} of {nbytes(out_p) / 1e6:.2f} MB; {n_excl} near-threshold pixels not "
-               f"compared; {composite_skip_share(wk, cargs):.3f} of the valid (part, strip) pairs skipped"),
-    )
-    report_kernel("composite", results["composite"], tag)
+    results["composite"] = composite_case(torch, wk, ck, out_p, r, f"Full b16, {list(out_p.shape)}", tag)
     return results
 
 
-def v18_kernel_phase(torch, wk, tag):
-    """The released-256 route's kernels at batch 16 from synthetic pairs:
-    norm_warp at 8 channels, composite at the fused route's shape (timed
-    through its C entry point too), and denorm_warp with the constant border (the
-    separate route's first pass) with its `grid_sample` yardstick; then a
-    smaller replicate-border denorm_warp case.  Returns {"denorm_warp": ...}."""
-    from pasta_gan_tpu_torch.data.dataset import SyntheticUvitonDataset, collate, tryon_warp_inputs_v18
-    from pasta_gan_tpu_torch.ops import cuda_kernels as ck
-    from pasta_gan_tpu_torch.ops.warp_math import warp_coords
-
-    F = torch.nn.functional
-    B = 16
-    ds = SyntheticUvitonDataset(num_samples=B)
-    r = tryon_warp_inputs_v18(collate([ds[i] for i in range(B)]), collate([ds[(i + 1) % B] for i in range(B)]),
-                              device="cuda")
-    assert bool(torch.isfinite(r["minv_norm"]).all()) and bool(torch.isfinite(r["minv_denorm"]).all())
-
-    # ---- norm_warp at C = 8 (image, mask, stickman, pad)
-    _, out_p = norm_warp_case(torch, wk, ck, r, "V18 b16, C=8", tag, plain_iters=5)
-
-    # ---- composite at the fused route's shape (10 parts, 2 groups, no hands)
-    srcs = out_p[:, :, 0:4].contiguous()
-    minv, valid, frame_hw = r["minv_denorm"], r["valid_denorm"], r["frame_hw"]
-    cargs = (srcs, minv, valid, frame_hw, r["groups"], r["erode_parts"], r["hand_parts"])
+def composite_case(torch, wk, ck, srcs, r, label, tag, plain_iters=20):
+    """composite on a route's operands `r` and planar patches `srcs`: against
+    its plain version (pixels a near-threshold plain mask value could flip
+    left out, and counted), timed through its wrapper and its C entry point,
+    with the byte bound of the patch sectors this run's data needs.  Returns
+    the result."""
+    cargs = (srcs, r["minv_denorm"], r["valid_denorm"], r["frame_hw"], r["groups"], r["erode_parts"],
+             r["hand_parts"])
+    minv, valid, frame_hw, N = cargs[1], cargs[2], cargs[3], srcs.shape[1]
     g_k, h_k = wk.composite(*cargs)
     g_p, h_p = wk.composite_reference(*cargs)
     torch.cuda.synchronize()
+    assert h_k.shape == h_p.shape == (srcs.shape[0], len(r["hand_parts"])) + tuple(frame_hw)
     keep = ~near_threshold_pixels(torch, wk, srcs, minv, valid, frame_hw, r["erode_parts"])
-    cerr = float(((g_k - g_p).abs() * keep[:, None, None]).max())
-    assert h_k.shape == h_p.shape == (srcs.shape[0], 0) + tuple(frame_hw), "the fused route has no hand masks"
-    assert cerr <= TOL, f"composite (V18 fused) disagrees with its plain version: {cerr}"
+    err = max(float(((g_k - g_p).abs() * keep[:, None, None]).max()),
+              float(((h_k - h_p).abs() * keep[:, None]).max()) if h_k.numel() else 0.0)
+    assert err <= TOL, f"composite ({label}) disagrees with its plain version: {err}"
+    H, W = frame_hw
+    n_ero = int(sum(r["erode_parts"][p] * valid[:, p].sum().item() for p in range(N)))
+    patch_bytes = composite_patch_bytes(torch, wk, srcs, minv, valid, frame_hw, r["groups"], r["erode_parts"])
+    # per valid (sample, part): coordinates + mask blend (~21 flops) per frame pixel,
+    # a 5x5 min (~8 flops) per pixel of eroded parts, and the 3-channel blend where saturated
+    sat_px = int((wk.denorm_warp_reference(srcs, minv, valid, frame_hw)[:, :, 3] >= wk.MASK_SATURATION_THRESHOLD).sum())
+    ops = int(valid.sum()) * H * W * 21 + n_ero * H * W * 8 + sat_px * 27
     launch, outs_e = composite_entry(torch, ck, cargs)
     et = entry_times(torch, launch, outs_e, (g_k, h_k))
-    patch_bytes = composite_patch_bytes(torch, wk, srcs, minv, valid, frame_hw, r["groups"], r["erode_parts"])
-    H, W = frame_hw
-    cres = dict(err=cerr, **kernel_times(torch, lambda: wk.composite(*cargs), lambda: wk.composite_reference(*cargs),
-                                         plain_iters=5),
-                **et, bytes=patch_bytes + nbytes(minv, valid, g_k, h_k),
-                ops=int(valid.sum()) * H * W * 21,
-                extra=(f"entry ms {et['entry_ms']:.4f} (median {et['entry_median']:.4f}); patch sectors read "
-                       f"{patch_bytes / 1e6:.2f} of {nbytes(srcs) / 1e6:.2f} MB; {int((~keep).sum())} near-threshold "
-                       f"pixels not compared; {composite_skip_share(wk, cargs):.3f} of the valid (part, strip) pairs "
-                       "skipped"))
-    report_kernel(f"composite(V18 fused, {list(srcs.shape)} -> {list(g_k.shape)})", cres, tag)
-    del g_k, h_k, g_p, h_p, outs_e
+    res = dict(err=err, **kernel_times(torch, lambda: wk.composite(*cargs), lambda: wk.composite_reference(*cargs),
+                                       plain_iters=plain_iters),
+               **et, bytes=patch_bytes + nbytes(minv, valid, g_k, h_k), ops=ops,
+               extra=(f"entry ms {et['entry_ms']:.4f} (median {et['entry_median']:.4f}); patch sectors read "
+                      f"{patch_bytes / 1e6:.2f} of {nbytes(srcs) / 1e6:.2f} MB; {int((~keep).sum())} near-threshold "
+                      f"pixels not compared; {composite_skip_share(wk, cargs):.3f} of the valid (part, strip) pairs "
+                      "skipped"))
+    report_kernel(f"composite({label} -> {list(g_k.shape)})", res, tag)
+    return res
 
-    # ---- denorm_warp, constant border, on the route's image + mask patches
+
+def denorm_warp_case(torch, wk, ck, srcs, r, tag, plain_iters=5):
+    """denorm_warp, constant border, on a route's planar patches `srcs`:
+    against its plain version, timed through its wrapper and its C entry
+    point beside the `grid_sample` yardstick (one call over the B*N patches),
+    with the byte bound of the patch sectors its taps need.  Returns the result."""
+    from pasta_gan_tpu_torch.ops.warp_math import warp_coords
+
+    F = torch.nn.functional
+    minv, valid, frame_hw = r["minv_denorm"], r["valid_denorm"], r["frame_hw"]
     dargs = (srcs, minv, valid, frame_hw)
     dn_k = wk.denorm_warp(*dargs)
     dn_p = wk.denorm_warp_reference(*dargs)
     torch.cuda.synchronize()
     err = float((dn_k - dn_p).abs().max())
     assert err <= TOL, f"denorm_warp disagrees with its plain version: {err}"
-    _, N, C, Hs, Ws = srcs.shape
+    B, N, C, Hs, Ws = srcs.shape
     H, W = frame_hw
     # grid_sample yardstick: one call over the B*N patches, the grid built outside the timed call
     sx, sy = warp_coords(minv, frame_hw)
@@ -523,13 +506,40 @@ def v18_kernel_phase(torch, wk, tag):
     et = entry_times(torch, launch, (out_e,), (dn_k,))
     del out_e
     res = dict(err=err, **kernel_times(torch, lambda: wk.denorm_warp(*dargs),
-                                       lambda: wk.denorm_warp_reference(*dargs), library, plain_iters=5),
+                                       lambda: wk.denorm_warp_reference(*dargs), library, plain_iters=plain_iters),
                **et, bytes=patch_bytes + nbytes(minv, valid, dn_k), ops=ops,
                extra=(f"entry ms {et['entry_ms']:.4f} (median {et['entry_median']:.4f}); "
                       f"patch sectors read {patch_bytes / 1e6:.2f} of {nbytes(srcs) / 1e6:.2f} MB, "
                       f"{nbytes(dn_k) / 1e6:.1f} MB written; grid_sample max |diff| vs plain {lib_err:.3g}"))
     report_kernel(f"denorm_warp(constant, {list(srcs.shape)} -> {list(dn_k.shape)})", res, tag)
-    del dn_k, grid
+    return res
+
+
+def v18_kernel_phase(torch, wk, tag):
+    """The released-256 route's kernels at batch 16 from synthetic pairs:
+    norm_warp at 8 channels, composite at the fused route's shape (timed
+    through its C entry point too), and denorm_warp with the constant border (the
+    separate route's first pass) with its `grid_sample` yardstick; then a
+    smaller replicate-border denorm_warp case.  Returns {"denorm_warp": ...}."""
+    from pasta_gan_tpu_torch.data.dataset import SyntheticUvitonDataset, collate, tryon_warp_inputs_v18
+    from pasta_gan_tpu_torch.ops import cuda_kernels as ck
+
+    B = 16
+    ds = SyntheticUvitonDataset(num_samples=B)
+    r = tryon_warp_inputs_v18(collate([ds[i] for i in range(B)]), collate([ds[(i + 1) % B] for i in range(B)]),
+                              device="cuda")
+    assert bool(torch.isfinite(r["minv_norm"]).all()) and bool(torch.isfinite(r["minv_denorm"]).all())
+
+    # ---- norm_warp at C = 8 (image, mask, stickman, pad)
+    _, out_p = norm_warp_case(torch, wk, ck, r, "V18 b16, C=8", tag, plain_iters=5)
+
+    # ---- composite at the fused route's shape (10 parts, 2 groups, no hands)
+    srcs = out_p[:, :, 0:4].contiguous()
+    composite_case(torch, wk, ck, srcs, r, f"V18 fused, {list(srcs.shape)}", tag, plain_iters=5)
+    # ---- denorm_warp, constant border, on the route's image + mask patches
+    res = denorm_warp_case(torch, wk, ck, srcs, r, tag)
+    minv, valid, frame_hw = r["minv_denorm"], r["valid_denorm"], r["frame_hw"]
+    H, W = frame_hw
 
     # ---- denorm_warp, replicate border, two samples
     rargs = (srcs[:2].contiguous(), minv[:2].contiguous(), valid[:2].contiguous(), frame_hw)
@@ -544,6 +554,49 @@ def v18_kernel_phase(torch, wk, tag):
                 extra="every pixel samples the clamped patch; bound counts the whole patches")
     report_kernel(f"denorm_warp(replicate, {list(rargs[0].shape)} -> {list(rk.shape)})", rres, tag)
     return {"denorm_warp": res}
+
+
+def kernel_512_phase(torch, wk, tag):
+    """The 512 route's kernels at batch 8 on the fixture's 512x320 pairs
+    (fullbody): norm_warp with N = 15 parts, n0 = 10, 128x128 patches from
+    512x512 frames; composite with 15 parts, 2 groups, every mask eroded and
+    no hand parts; denorm_warp (constant border) [8,15,4,128,128] ->
+    [8,15,4,512,512], the separate route's first pass.  Each must equal its
+    plain version bit for bit.  Then up2 and down2 at every (extend or pad,
+    dtype, input shape) that one bf16 forward of the full-width Generator512
+    (the serving phase's snapshot weights) gives them at batch 8, each held
+    to its plain version as the 256 cases are (`fir_case`)."""
+    from pasta_gan_tpu_torch.cli import test as cli
+    from pasta_gan_tpu_torch.data import dataset as tds
+    from pasta_gan_tpu_torch.models import Generator512
+    from pasta_gan_tpu_torch.ops import cuda_kernels as ck
+
+    person, garment = fixture_512_batch(tds, 8)
+    gen = Generator512().reset_parameters(torch.Generator().manual_seed(0)).cuda().set_dtype(torch.bfloat16)
+    b = tds.prepare_tryon_batch_512(on_card(torch, person), on_card(torch, garment), "fullbody", device="cuda")
+    with torch.no_grad():
+        classes = fir_classes(torch, lambda: cli.tryon_forward(gen, torch.zeros(512, device="cuda"),
+                                                                 {k: v.to(torch.bfloat16) for k, v in b.items()}))
+    del gen, b
+    torch.cuda.empty_cache()
+    print(f"Generator512 forward (batch 8, bf16): {sum(classes.values())} FIR launches in "
+          f"{len(classes)} classes: " + ", ".join(f"{k}: {n}" for k, n in sorted(classes.items())) + f" [{tag}]",
+          flush=True)
+    r = tds.warp_inputs_512_batch(person, garment, "fullbody", device="cuda")
+    assert r["minv_norm"].shape[1] == 15 and r["n_upper"] == 10 and r["hand_parts"] == () and all(r["erode_parts"])
+    res = {}
+    res["norm_warp"], out_p = norm_warp_case(torch, wk, ck, r, "512 b8, N=15, n0=10", tag, plain_iters=5)
+    res["composite"] = composite_case(torch, wk, ck, out_p, r, f"512 fullbody b8, {list(out_p.shape)}", tag,
+                                      plain_iters=3)
+    res["denorm_warp"] = denorm_warp_case(torch, wk, ck, out_p, r, tag, plain_iters=3)
+    bad = {k: v["err"] for k, v in res.items() if v["err"] != 0}
+    assert not bad, f"a kernel differs from its plain version at the 512 shapes: {bad}"
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    for kind, arg, dt, shape in sorted(classes):
+        res[(kind, arg, dt, shape)] = fir_case(torch, g, kind, arg, dtypes[dt], shape, tag)
+    assert {k[0] for k in classes} == {"up2", "down2"}, f"the 512 forward launched FIR kernels {sorted(classes)}"
+    return res
 
 
 def report_kernel(label, res, tag):
@@ -577,13 +630,7 @@ def fir_kernel_phase(torch, tag):
     a few microseconds the wrapper's host path sits inside the CUDA events.
     Returns the results of the main path's cases (FIR_MAIN) under "up2" and
     "down2"."""
-    from pasta_gan_tpu_torch.ops import cuda_kernels as ck
-    from pasta_gan_tpu_torch.ops import upfirdn_kernels as uk
-
-    F = torch.nn.functional
     g = torch.Generator(device="cuda").manual_seed(0)
-    taps = torch.tensor([1.0, 3.0, 3.0, 1.0], device="cuda") / 8.0
-    filt = torch.outer(taps, taps)
     results = {}
     specs = [("up2", e, dt, (16, 128, 128, 128)) for e in (1, 0) for dt in (torch.bfloat16, torch.float32)]
     specs += [("down2", p, dt, (32, 64, 256 + 2 * (1 - p), 256 + 2 * (1 - p)))
@@ -601,59 +648,75 @@ def fir_kernel_phase(torch, tag):
     specs += [("down2", 1, torch.bfloat16, (64, 64, 256, 256))]
     specs += [("down2", 1, torch.float32, (32, 3, r, r)) for r in (256, 128, 64, 32, 16, 8)]
     for kind, arg, dt, shape in specs:
-        x = torch.randn(shape, generator=g, device="cuda").to(dt)
-        C = shape[1]
-        if kind == "up2":
-            run = lambda: uk.up2(x, extend=arg)  # noqa: E731
-            plain = lambda: uk.up2_reference(x, arg)  # noqa: E731
-            w = (filt * 4.0).to(dt).expand(C, 1, 4, 4).contiguous()
-            library = lambda: F.conv_transpose2d(x, w, stride=2, padding=1 - arg, groups=C)  # noqa: E731
-            adjoint = lambda gr: uk.down2(gr, pad=1 - arg, gain=4.0)  # noqa: E731
-            flops_per_out = 10
-        else:
-            run = lambda: uk.down2(x, pad=arg)  # noqa: E731
-            plain = lambda: uk.down2_reference(x, arg)  # noqa: E731
-            w = filt.to(dt).expand(C, 1, 4, 4).contiguous()
-            library = lambda: F.conv2d(x, w, stride=2, padding=arg, groups=C)  # noqa: E731
-            adjoint = lambda gr: uk.up2(gr, extend=1 - arg, gain=0.25)  # noqa: E731
-            flops_per_out = 36
-        y, yp, yl = run(), plain(), library()
-        torch.cuda.synchronize()
-        assert y.shape == yp.shape == yl.shape and y.dtype == dt, (kind, y.shape, yp.shape, yl.shape)
-        err = float((y.float() - yp.float()).abs().max())
-        if dt == torch.float32:
-            assert err <= FIR_F32_TOL, f"{kind} fp32 disagrees with its plain version: {err}"
-        else:
-            assert torch.allclose(y.float(), yp.float(), rtol=BF16_REL, atol=1e-6), \
-                f"{kind} bf16 disagrees with its plain version beyond 2 ulp: {err}"
-        lib_err = float((yl.float() - yp.float()).abs().max())
-        gr = torch.randn(y.shape, generator=g, device="cuda").to(dt)
-        # <y, g> = <x, adjoint(g)>, the difference over ||y|| ||g|| (bf16 keeps 8 bits)
-        lhs = float((y.double() * gr.double()).sum())
-        rhs = float((x.double() * adjoint(gr).double()).sum())
-        adj = abs(lhs - rhs) / float(y.double().norm() * gr.double().norm())
-        assert adj <= (1e-6 if dt == torch.float32 else 1e-3), f"{kind} adjoint identity off by {adj}"
-        del yp, yl, gr
-        ye = torch.empty_like(y)
-        entry = lambda: (ck.UP2 if kind == "up2" else ck.DOWN2).launch(  # noqa: E731
-            x.data_ptr(), ye.data_ptr(), int(dt == torch.bfloat16), shape[0] * C, shape[2], shape[3], arg, 1.0,
-            ck.stream_of(x.device))
-        entry()
-        torch.cuda.synchronize()
-        assert torch.equal(ye, y), f"{kind} through its C entry point differs from its wrapper"
-        entry_ms, entry_median = cuda_time_ms(torch, entry)
-        label = f"{kind}({'extend' if kind == 'up2' else 'pad'}={arg}, {str(dt)[6:]}, {list(shape)})"
-        res = dict(err=err, **kernel_times(torch, run, plain, library, plain_iters=5), bytes=nbytes(x, y),
-                   entry_ms=entry_ms, entry_median=entry_median,
-                   ops=y.numel() * flops_per_out,
-                   extra=f"entry ms {entry_ms:.4f} (median {entry_median:.4f}); adjoint identity relative error "
-                         f"{adj:.3g}; library max |diff| vs plain {lib_err:.3g}")
-        report_kernel(label, res, tag)
+        res = fir_case(torch, g, kind, arg, dt, shape, tag)
         main = FIR_MAIN.get((kind, arg, str(dt)[6:], shape))
         if main:
             results[main] = res
-        del x, y, ye
     return results
+
+
+def fir_case(torch, g, kind, arg, dt, shape, tag):
+    """One FIR kernel case on an input of `shape` drawn from `g`: up2 (`arg`
+    extend) or down2 (`arg` pad) against its plain version on the card (fp32
+    within FIR_F32_TOL, bf16 within 2 ulp), the adjoint identity, the C
+    entry point alone equal to the wrapper, times, the byte bound and the
+    depthwise cuDNN call that computes the same function.  Prints the case's
+    line and returns its result."""
+    from pasta_gan_tpu_torch.ops import cuda_kernels as ck
+    from pasta_gan_tpu_torch.ops import upfirdn_kernels as uk
+
+    F = torch.nn.functional
+    taps = torch.tensor([1.0, 3.0, 3.0, 1.0], device="cuda") / 8.0
+    filt = torch.outer(taps, taps)
+    x = torch.randn(shape, generator=g, device="cuda").to(dt)
+    C = shape[1]
+    if kind == "up2":
+        run = lambda: uk.up2(x, extend=arg)  # noqa: E731
+        plain = lambda: uk.up2_reference(x, arg)  # noqa: E731
+        w = (filt * 4.0).to(dt).expand(C, 1, 4, 4).contiguous()
+        library = lambda: F.conv_transpose2d(x, w, stride=2, padding=1 - arg, groups=C)  # noqa: E731
+        adjoint = lambda gr: uk.down2(gr, pad=1 - arg, gain=4.0)  # noqa: E731
+        flops_per_out = 10
+    else:
+        run = lambda: uk.down2(x, pad=arg)  # noqa: E731
+        plain = lambda: uk.down2_reference(x, arg)  # noqa: E731
+        w = filt.to(dt).expand(C, 1, 4, 4).contiguous()
+        library = lambda: F.conv2d(x, w, stride=2, padding=arg, groups=C)  # noqa: E731
+        adjoint = lambda gr: uk.up2(gr, extend=1 - arg, gain=0.25)  # noqa: E731
+        flops_per_out = 36
+    y, yp, yl = run(), plain(), library()
+    torch.cuda.synchronize()
+    assert y.shape == yp.shape == yl.shape and y.dtype == dt, (kind, y.shape, yp.shape, yl.shape)
+    err = float((y.float() - yp.float()).abs().max())
+    if dt == torch.float32:
+        assert err <= FIR_F32_TOL, f"{kind} fp32 disagrees with its plain version: {err}"
+    else:
+        assert torch.allclose(y.float(), yp.float(), rtol=BF16_REL, atol=1e-6), \
+            f"{kind} bf16 disagrees with its plain version beyond 2 ulp: {err}"
+    lib_err = float((yl.float() - yp.float()).abs().max())
+    gr = torch.randn(y.shape, generator=g, device="cuda").to(dt)
+    # <y, g> = <x, adjoint(g)>, the difference over ||y|| ||g|| (bf16 keeps 8 bits)
+    lhs = float((y.double() * gr.double()).sum())
+    rhs = float((x.double() * adjoint(gr).double()).sum())
+    adj = abs(lhs - rhs) / float(y.double().norm() * gr.double().norm())
+    assert adj <= (1e-6 if dt == torch.float32 else 1e-3), f"{kind} adjoint identity off by {adj}"
+    del yp, yl, gr
+    ye = torch.empty_like(y)
+    entry = lambda: (ck.UP2 if kind == "up2" else ck.DOWN2).launch(  # noqa: E731
+        x.data_ptr(), ye.data_ptr(), int(dt == torch.bfloat16), shape[0] * C, shape[2], shape[3], arg, 1.0,
+        ck.stream_of(x.device))
+    entry()
+    torch.cuda.synchronize()
+    assert torch.equal(ye, y), f"{kind} through its C entry point differs from its wrapper"
+    entry_ms, entry_median = cuda_time_ms(torch, entry)
+    label = f"{kind}({'extend' if kind == 'up2' else 'pad'}={arg}, {str(dt)[6:]}, {list(shape)})"
+    res = dict(err=err, **kernel_times(torch, run, plain, library, plain_iters=5), bytes=nbytes(x, y),
+               entry_ms=entry_ms, entry_median=entry_median,
+               ops=y.numel() * flops_per_out,
+               extra=f"entry ms {entry_ms:.4f} (median {entry_median:.4f}); adjoint identity relative error "
+                     f"{adj:.3g}; library max |diff| vs plain {lib_err:.3g}")
+    report_kernel(label, res, tag)
+    return res
 
 
 def serve(torch, cli, ck, tag, path, argv, data=("--synthetic", "16")):
@@ -707,7 +770,7 @@ def host_ms(torch, fn, iters):
     return statistics.median(ts) * 1e3, out
 
 
-def time_tryon(torch, cli, gen, w_avg, prepare, batches, label, tag):
+def time_tryon(torch, cli, gen, w_avg, prepare, batches, label, tag, res=256):
     """End-to-end try-on (routing + bf16 forward) for each (B, person,
     garment, iters) of `batches`: median host ms, then each step alone and
     under torch.profiler.  `prepare(person, garment)` routes one batch."""
@@ -716,7 +779,7 @@ def time_tryon(torch, cli, gen, w_avg, prepare, batches, label, tag):
 
     for B, p, gm, iters in batches:
         e2e_ms, out = host_ms(torch, lambda: cli.tryon_forward(gen, w_avg, route(p, gm)), iters)
-        assert tuple(out.shape) == (B, 256, 256, 3) and bool(torch.isfinite(out.float()).all())
+        assert tuple(out.shape) == (B, res, res, 3) and bool(torch.isfinite(out.float()).all())
         batch = route(p, gm)
         steps = {"routing": lambda: route(p, gm), "forward": lambda: cli.tryon_forward(gen, w_avg, batch)}
         split = []
@@ -882,6 +945,128 @@ def v18_phase(torch, wk, ck, tag, tmp):
     return launches
 
 
+def fixture_root():
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), FIXTURE)
+
+
+def fixture_512_batch(tds, B, first=0):
+    """Collated (person, garment) of the fixture's 512x320 test pairs first ... first + B - 1 (wrapping)."""
+    ds = tds.UvitonDataset512Test(fixture_root())
+    items = [ds[(first + i) % len(ds)] for i in range(B)]
+    return tds.collate([it["person"] for it in items]), tds.collate([it["garment"] for it in items])
+
+
+def serving_512_phase(torch, wk, ck, tag, tmp):
+    """512x320 serving: a full-width Generator512 (channel_base 32768,
+    channel_max 512, start 8, merge above 32, seed 0) through cli.test_512 on
+    the fixture's 8 test pairs for each --change_region on the fused and the
+    separate denorm route, each run launching exactly its path's kernels and
+    writing 8 triptychs that decode to 512x960; the two routes' batches
+    against each other on the card (batch 8, every region); the card against
+    the CPU path (routing on both routes and a thin Generator512 forward,
+    batch 2, fp32); the bf16 forward against the fp32 one (batch 8); the
+    end-to-end try-on (fullbody, bf16, from a loaded batch) timed and
+    profiled at batch 8 and 1.  Returns the serving runs' launch counts,
+    summed over the regions, by path."""
+    from pasta_gan_tpu_torch.cli import test as cli
+    from pasta_gan_tpu_torch.cli import test_512 as cli512
+    from pasta_gan_tpu_torch.data import dataset as tds
+    from pasta_gan_tpu_torch.data import image_io
+    from pasta_gan_tpu_torch.data.warp import CHANGE_REGIONS
+    from pasta_gan_tpu_torch.io.checkpoints import save_snapshot
+    from pasta_gan_tpu_torch.models import Generator512
+
+    g = torch.Generator().manual_seed(0)
+    gen = Generator512().reset_parameters(g)
+    assert (gen.config["img_resolution"], gen.config["channel_base"], gen.config["channel_max"]) == (512, 32768, 512)
+    snap = os.path.join(tmp, "snapshot_512.pt")
+    save_snapshot(snap, gen.state_dict(), 0.1 * torch.randn(512, generator=g),
+                  {"model": gen.config, "generator": gen.variant})
+    del gen
+    launches = {}
+    for denorm in ("fused", "separate"):
+        path = f"serving_512_{denorm}"
+        launches[path] = dict.fromkeys(ck.KERNELS, 0)
+        for region in CHANGE_REGIONS:
+            ck.reset_launch_counts()
+            t0 = time.perf_counter()
+            written = cli512.main(["--network", snap, "--dataroot", fixture_root(), "--change_region", region,
+                                   "--denorm", denorm, "--batchsize", "8",
+                                   "--outdir", os.path.join(tmp, f"tryon_512_{denorm}_{region}")])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            counts = ck.launch_counts()
+            ran = {name for name, n in counts.items() if n > 0}
+            assert ran == PATH_KERNELS[path], f"{path} ({region}) launched {sorted(ran)}, expected {sorted(PATH_KERNELS[path])}"
+            assert len(written) == 8 and all(image_io.read_image(p).shape == (512, 960, 3) for p in written), \
+                f"{path} ({region}): missing or misshapen triptychs"
+            for k, n in counts.items():
+                launches[path][k] += n
+            print(f"cli.test_512 ({path}, --change_region {region}): {len(written)} triptychs (512x960) in "
+                  f"{cli_s:.2f} s (first call, includes loading); launches {counts} [{tag}]", flush=True)
+
+    # ---- the two routes against each other on the card, every region, batch 8
+    p8, g8 = fixture_512_batch(tds, 8)
+    for region in CHANGE_REGIONS:
+        fused = tds.prepare_tryon_batch_512(p8, g8, region, device="cuda", denorm="fused")
+        separate = tds.prepare_tryon_batch_512(p8, g8, region, device="cuda", denorm="separate")
+        r = tds.warp_inputs_512_batch(p8, g8, region, device="cuda")
+        patches = wk.norm_warp_reference(r["src_u"], r["src_l"], r["minv_norm"], r["valid_norm"], r["n_upper"],
+                                         r["patch_hw"])
+        worst, n_near = batch_diff(torch, wk, separate, fused, r, patches)
+        print(f"512 routing on the card, separate vs fused route ({region}, batch 8): max |diff| {worst:.3g} "
+              f"({n_near} near-threshold pixels excluded) [{tag}]", flush=True)
+        assert worst <= TOL, f"the 512 separate route differs from the fused one ({region}): {worst}"
+        del fused, separate, r, patches
+
+    # ---- the card's result against the port's CPU path, batch 2, fp32
+    person, garment = fixture_512_batch(tds, 2, first=1)
+    b_cpu = tds.prepare_tryon_batch_512(person, garment, "fullbody", device="cpu")
+    r = tds.warp_inputs_512_batch(person, garment, "fullbody", device="cpu")
+    patches = wk.norm_warp_reference(r["src_u"], r["src_l"], r["minv_norm"], r["valid_norm"], r["n_upper"],
+                                     r["patch_hw"])
+    errs = {}
+    for denorm in ("fused", "separate"):
+        b_gpu = tds.prepare_tryon_batch_512(person, garment, "fullbody", device="cuda", denorm=denorm)
+        errs[denorm], n_near = batch_diff(torch, wk, b_gpu, b_cpu, r, patches)
+        assert errs[denorm] <= TOL, f"512 batch ({denorm}) on the card differs from the CPU path: {errs[denorm]}"
+    thin = Generator512(channel_base=1024, channel_max=32).reset_parameters(torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        o_cpu = cli.tryon_forward(thin.eval(), torch.zeros(512), b_cpu)
+        o_gpu = cli.tryon_forward(thin.cuda(), torch.zeros(512, device="cuda"), {k: v.cuda() for k, v in b_cpu.items()})
+    gerr = float((o_gpu.cpu() - o_cpu).abs().max())
+    print(f"512 card vs CPU (fullbody, batch 2): routing max_abs_err fused {errs['fused']:.3g} / separate "
+          f"{errs['separate']:.3g} ({n_near} near-threshold pixels excluded), thin-generator finetune "
+          f"max_abs_err={gerr:.3g} [{tag}]", flush=True)
+    assert torch.allclose(o_gpu.cpu(), o_cpu, rtol=1e-2, atol=1e-2), "Generator512 on the card differs from the CPU"
+    del thin, o_cpu, o_gpu
+
+    # ---- the timed bf16 forward against the same snapshot's fp32 forward, full width, batch 8
+    gen, w_avg = cli.load_generator(snap, torch.device("cuda"), "512")
+    p8, g8 = on_card(torch, p8), on_card(torch, g8)
+    b32 = tds.prepare_tryon_batch_512(p8, g8, "fullbody", device="cuda")
+    o32 = cli.tryon_forward(gen, w_avg, b32)
+    gen.set_dtype(torch.bfloat16)
+    o16 = cli.tryon_forward(gen, w_avg, {k: v.to(torch.bfloat16) for k, v in b32.items()}).float()
+    assert tuple(o16.shape) == (8, 512, 512, 3) and bool(torch.isfinite(o16).all()), "bad bf16 512 try-on images"
+    rel = float((o16 - o32).norm() / o32.norm())
+    print(f"512 bf16 vs fp32 forward (batch 8, full width): finetune relative L2 error {rel:.4g} (limit "
+          f"{BF16_REL_L2}), max |diff| {float((o16 - o32).abs().max()):.4g} of max |fp32| "
+          f"{float(o32.abs().max()):.4g} [{tag}]", flush=True)
+    assert rel <= BF16_REL_L2, f"the 512 bf16 forward differs from the fp32 one: relative L2 error {rel}"
+    del o32, o16, b32
+
+    # ---- end-to-end timing (routing + bf16 forward) from a loaded batch, and where the time goes
+    p1, g1 = (on_card(torch, d) for d in fixture_512_batch(tds, 1))
+    torch.cuda.reset_peak_memory_stats()
+    time_tryon(torch, cli, gen, w_avg, lambda p, gm: tds.prepare_tryon_batch_512(p, gm, "fullbody", device="cuda"),
+               [(8, p8, g8, 10), (1, p1, g1, 20)], "512 fullbody", tag, res=512)
+    print(f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated (512) [{tag}]", flush=True)
+    del gen
+    torch.cuda.empty_cache()
+    return launches
+
+
 def device_profile(torch, fn, iters=5, top=8):
     """Device ms and device operations per run of fn() under torch.profiler
     (one stream, so operations do not overlap), and the `top` operations by
@@ -906,11 +1091,36 @@ def device_profile(torch, fn, iters=5, top=8):
     return (device_ms or None), n_ops, [(op, us / 1e3 / iters, n / iters) for op, (us, n) in ranked]
 
 
-def run_cli_train(torch, ck, tag, tmp, path, argv, data=("--synthetic", "64")):
+def check_grids(run_dir, n_samples, tag):
+    """The image grids of a cli.train run with --img_snap 1: the four written
+    at the start and fakes / parsing / tryon_grid for every tick's kimg tag,
+    each decoded by the port's PNG decoder to its shape (grid_n = min(16,
+    batch, samples) tiles of 256x256 in ceil(sqrt(grid_n)) columns; a gnum x
+    gnum try-on grid, gnum = min(6, grid_n))."""
+    from pasta_gan_tpu_torch.data import image_io
+
+    grid_n = min(16, TRAIN_BATCH, n_samples)
+    gnum = min(6, grid_n)
+    cols = math.ceil(math.sqrt(grid_n))
+    tile = (256 * math.ceil(grid_n / cols), 256 * cols, 3)
+    with open(os.path.join(run_dir, "stats.jsonl")) as f:
+        tags = {f"{round(json.loads(line)['Progress/kimg'] * 1000) // 1000:06d}" for line in f}
+    want = {f"{n}.png": tile for n in ("reals", "init_denorm_upper", "init_denorm_lower", "init_retain")}
+    for t in tags:
+        want.update({f"fakes{t}.png": tile, f"parsing{t}.png": tile, f"tryon_grid{t}.png": (256 * gnum, 256 * gnum, 3)})
+    got = {n: image_io.read_image(os.path.join(run_dir, n)).shape for n in sorted(os.listdir(run_dir))
+           if n.endswith(".png")}
+    assert got == want, f"grids written {got}, expected {want}"
+    print(f"image grids: {len(got)} PNGs decoded at their shapes ({', '.join(sorted(got))}) [{tag}]", flush=True)
+
+
+def run_cli_train(torch, ck, tag, tmp, path, argv, data=("--synthetic", "64"), n_samples=64, grids=True):
     """cli.train at full width: TRAIN_STEPS steps at batch TRAIN_BATCH, bf16, R1
-    on the first, 64 synthetic samples (or `data`'s), extra flags `argv`.  Checks what every
-    training path must give (finite stats, G, D and G_ema moved, exactly the
-    kernels of PATH_KERNELS[path]) and returns (cli output, launches)."""
+    on the first, 64 synthetic samples (or `data`'s, `n_samples` of them),
+    extra flags `argv`, the image grids every tick (`--img_snap 1`) or, with
+    `grids` false, none (`--img_snap 0`).  Checks what every training path
+    must give (finite stats, G, D and G_ema moved, exactly the kernels of
+    PATH_KERNELS[path], every grid PNG) and returns (cli output, launches)."""
     from pasta_gan_tpu_torch.cli import train as cli_train
 
     # cuDNN's fp32 convolutions (the VGG19 features, D's epilogue) run as a
@@ -921,7 +1131,7 @@ def run_cli_train(torch, ck, tag, tmp, path, argv, data=("--synthetic", "64")):
     t0 = time.perf_counter()
     out = cli_train.main(["--outdir", os.path.join(tmp, "runs"), *data, "--batch", str(TRAIN_BATCH),
                           "--dtype", "bfloat16", "--seed", "0", "--kimg", str(TRAIN_STEPS * TRAIN_BATCH / 1000),
-                          *argv])
+                          "--img_snap", str(int(grids)), *argv])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = ck.launch_counts()
@@ -942,6 +1152,8 @@ def run_cli_train(torch, ck, tag, tmp, path, argv, data=("--synthetic", "64")):
     moved = {name: any(not torch.equal(a, b) for a, b in zip(getattr(state, name).parameters(), ref.parameters()))
              for name, ref in (("G", init.G), ("D", init.D), ("G_ema", init.G))}
     assert all(moved.values()), f"parameters did not move: {moved}"
+    if grids:
+        check_grids(out["run_dir"], n_samples, tag)
     return out, launches
 
 
@@ -986,7 +1198,7 @@ def profile_steps(torch, ck, out, batch, tag, label, down2_classes=False):
         host_ms = (time.perf_counter() - t1) * 1e3
         res[name] = (device_ms, host_ms, ck.launch_counts())
         if down2_classes:
-            classes[name] = count_down2_classes(torch, fn)
+            classes[name] = {k[1:]: n for k, n in fir_classes(torch, fn).items() if k[0] == "down2"}
         busy = "not measured" if device_ms is None else f"{device_ms / host_ms:.3f}"
         dev = "not measured (no device time in the trace)" if device_ms is None else f"{device_ms:.1f} ms"
         print(f"profile {label} {name} step (batch {TRAIN_BATCH}): host {host_ms:.1f} ms, device {dev}, busy {busy}, "
@@ -1091,7 +1303,7 @@ def train_ada_phase(torch, ck, tag, tmp):
     try:
         ex = cli_train.main(["--outdir", os.path.join(tmp, "runs"), "--synthetic", "32", "--batch", str(TRAIN_BATCH),
                              "--dtype", "bfloat16", "--seed", "0", "--kimg", str(3 * TRAIN_BATCH / 1000),
-                             "--aug", "ada", "--p", str(ADA_P), "--ada_exact_geom"])
+                             "--aug", "ada", "--p", str(ADA_P), "--ada_exact_geom", "--img_snap", "0"])
         torch.cuda.synchronize()
         r = ex["records"]
         assert not ex["trainer"].config.ada.stack_calls and not ex["trainer"].config.ada.fast_geom
@@ -1148,7 +1360,7 @@ def real_data_phase(torch, ck, tag, tmp):
     from pasta_gan_tpu_torch.data import image_io, masks, stickman
     from pasta_gan_tpu_torch.train import loop
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), FIXTURE)
+    root = fixture_root()
     with open(os.path.join(root, "MANIFEST.json")) as f:
         man = json.load(f)
 
@@ -1163,14 +1375,20 @@ def real_data_phase(torch, ck, tag, tmp):
         records.append(rec)
         got = {k: array_digest(v) for k, v in tds.load_sample(*rec).items()}
         bad += [f"{key} {k}" for k in sorted(set(want) | set(got)) if got.get(k) != want.get(k)]
+    for key, want in sorted(man["records_512"].items()):
+        got = {k: array_digest(v) for k, v in tds.load_sample(*tds.record_paths(root, *key.split("/")),
+                                                                 size=(512, 320)).items()}
+        bad += [f"{key} {k}" for k in sorted(set(want) | set(got)) if got.get(k) != want.get(k)]
     assert not bad, f"arrays that differ from MANIFEST.json: {bad}"
     n_arrays = sum(len(v) for v in man["records"].values())
-    print(f"real_data: {len(man['files'])} decoded files, {len(man['acgpn_l256'])} resized ACGPN masks and "
-          f"{len(records)} load_sample records ({n_arrays} arrays) equal MANIFEST.json's digests [{tag}]", flush=True)
+    print(f"real_data: {len(man['files'])} decoded files, {len(man['acgpn_l256'])} resized ACGPN masks, "
+          f"{len(records)} load_sample records ({n_arrays} arrays) and {len(man['records_512'])} 512x320 records "
+          f"equal MANIFEST.json's digests [{tag}]", flush=True)
 
-    # ---- host times on this machine's CPU, medians over the fixture
-    jpgs = [(os.path.join(root, rel),) for rel in man["files"] if rel.endswith(".jpg")]
-    pngs = [(os.path.join(root, rel),) for rel in man["files"] if rel.endswith(".png")]
+    # ---- host times on this machine's CPU, medians over the fixture's 256x192 files
+    files_256 = [rel for rel in man["files"] if "_512_320" not in rel]
+    jpgs = [(os.path.join(root, rel),) for rel in files_256 if rel.endswith(".jpg")]
+    pngs = [(os.path.join(root, rel),) for rel in files_256 if rel.endswith(".png")]
     mask_args = []
     for _, kpt, par in records:
         parsing = image_io.read_image(par)
@@ -1241,7 +1459,7 @@ def real_data_phase(torch, ck, tag, tmp):
         out, launches_t = run_cli_train(
             torch, ck, tag, tmp, "training_real",
             ["--aug", "noaug", "--workers", "3", "--kimg_per_tick", str(TRAIN_BATCH / 1000), "--snap", "2"],
-            data=("--data", root))
+            data=("--data", root), n_samples=len(tds.UvitonDatasetFull(root)), grids=False)
     finally:
         loop._save_snapshot = save
     torch.backends.cudnn.allow_tf32 = False
@@ -1260,26 +1478,29 @@ def real_data_phase(torch, ck, tag, tmp):
     return {"serving_real": launches_s, "training_real": launches_t}
 
 
-def count_down2_classes(torch, fn):
-    """Run fn() once more and count its down2 launches by (pad, dtype, input
-    shape), through a counting wrapper around the module's launch helper that
-    is removed again before returning; the package itself is unchanged."""
+def fir_classes(torch, fn):
+    """Run fn() once more and count its up2 and down2 launches by (kernel,
+    extend or pad, dtype, input shape), through counting wrappers around the
+    module's launch helpers that are removed again before returning; the
+    package itself is unchanged."""
     from collections import Counter
 
     from pasta_gan_tpu_torch.ops import upfirdn_kernels as uk
 
-    hist, launch = Counter(), uk._down2_apply
+    hist, up, down = Counter(), uk._up2_apply, uk._down2_apply
 
-    def counted(x, pad, gain):
-        hist[(pad, str(x.dtype)[6:], tuple(x.shape))] += 1
-        return launch(x, pad, gain)
+    def counted(kind, launch):
+        def run(x, arg, gain):
+            hist[(kind, arg, str(x.dtype)[6:], tuple(x.shape))] += 1
+            return launch(x, arg, gain)
+        return run
 
-    uk._down2_apply = counted
+    uk._up2_apply, uk._down2_apply = counted("up2", up), counted("down2", down)
     try:
         fn()
         torch.cuda.synchronize()
     finally:
-        uk._down2_apply = launch
+        uk._up2_apply, uk._down2_apply = up, down
     return hist
 
 
@@ -1399,10 +1620,12 @@ def main():
 
     results = kernel_phase(torch, wk, tag)
     results.update(v18_kernel_phase(torch, wk, tag))
+    kernel_512_phase(torch, wk, tag)
     results.update(fir_kernel_phase(torch, tag))
     with tempfile.TemporaryDirectory() as tmp:
         launches = {"serving_full": slice_phase(torch, wk, ck, tag, tmp)}
         launches.update(v18_phase(torch, wk, ck, tag, tmp))
+        launches.update(serving_512_phase(torch, wk, ck, tag, tmp))
         launches["training"] = train_phase(torch, ck, tag, tmp)
         launches["training_ada"] = train_ada_phase(torch, ck, tag, tmp)
         launches.update(real_data_phase(torch, ck, tag, tmp))

@@ -27,8 +27,6 @@ from __future__ import annotations
 
 import argparse
 import os
-import struct
-import zlib
 from typing import Optional
 
 import numpy as np
@@ -38,22 +36,10 @@ from .. import resolve_device
 
 
 def save_image(arr: np.ndarray, path: str) -> None:
-    """Write an HxWx3 image in [-1, 1] as an 8-bit RGB PNG (zlib + struct only)."""
-    img = np.clip((np.asarray(arr, np.float32) + 1.0) * 127.5, 0, 255).astype(np.uint8)
-    h, w = img.shape[:2]
-    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+    """Write an HxWx3 image in [-1, 1] as an 8-bit RGB PNG (`data/image_io.py:write_png`)."""
+    from ..data.image_io import write_png
 
-    def chunk(tag: bytes, data: bytes) -> bytes:
-        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
-
-    png = (
-        b"\x89PNG\r\n\x1a\n"
-        + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-        + chunk(b"IDAT", zlib.compress(raw, 6))
-        + chunk(b"IEND", b"")
-    )
-    with open(path, "wb") as f:
-        f.write(png)
+    write_png(np.clip((np.asarray(arr, np.float32) + 1.0) * 127.5, 0, 255).astype(np.uint8), path)
 
 
 def load_generator(network: str, device="cuda", generator: Optional[str] = None):
@@ -92,7 +78,6 @@ def tryon_forward(gen, w_avg, batch, truncation_psi: float = 1.0) -> torch.Tenso
 
 def main(argv=None):
     from ..data.warp import DENORM_ROUTES
-    from ..models import GENERATORS
 
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--network", required=True, help="network snapshot file (io/checkpoints.py)")
@@ -101,7 +86,7 @@ def main(argv=None):
     p.add_argument("--outdir", required=True)
     p.add_argument("--batchsize", type=int, default=16)
     p.add_argument("--truncation_psi", type=float, default=1.0)
-    p.add_argument("--generator", choices=sorted(GENERATORS), default=None,
+    p.add_argument("--generator", choices=["full", "v18"], default=None,
                    help="full: GeneratorFull (42-channel styles); v18: the released-256 interface "
                         "(60-channel norm + stickman styles); default: what the snapshot records")
     p.add_argument("--denorm", choices=DENORM_ROUTES, default="fused",
@@ -119,6 +104,8 @@ def main(argv=None):
 
     os.makedirs(args.outdir, exist_ok=True)
     gen, w_avg = load_generator(args.network, device, args.generator)
+    if gen.variant not in ("full", "v18"):
+        raise SystemExit(f"{args.network} holds a {gen.variant!r} generator: serve it with cli.test_{gen.variant}")
     prepare = prepare_tryon_batch_v18 if gen.variant == "v18" else prepare_tryon_batch
     if args.synthetic > 0:
         ds = SyntheticUvitonDataset(num_samples=args.synthetic)

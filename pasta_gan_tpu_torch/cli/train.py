@@ -25,7 +25,10 @@ runs the D calls one by one.
 4 steps).  The run directory gets training_options.json, stats.jsonl (one
 line a tick), and every `--snap` ticks and at the end a network snapshot of
 G_ema (network-snapshot-<kimg>.pt, servable by `pasta_gan_tpu_torch.cli.test
---network`) and train-state-latest.pt (for `--resume`).  Without
+--network`) and train-state-latest.pt (for `--resume`); the image grids
+(reals.png and init_*.png once, fakes<kimg>.png, parsing<kimg>.png and
+tryon_grid<kimg>.png every `--img_snap` ticks from tick 0 and at the end;
+`--img_snap 0` writes none).  Without
 `--vgg_ckpt` (a torchvision vgg19 state_dict already on disk) the perceptual
 loss uses a He-initialized VGG19; nothing is downloaded.
 """
@@ -83,6 +86,8 @@ def main(argv=None):
     p.add_argument("--resume", default=None, help="a train-state checkpoint of this package (train-state-*.pt)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--snap", type=int, default=50, help="network snapshot interval in ticks")
+    p.add_argument("--img_snap", type=int, default=None,
+                   help="image grid interval in ticks (default: the config's 50; 0 writes no grids)")
     p.add_argument("--kimg_per_tick", type=float, default=None, help="thousands of images a tick (default: the preset's)")
     p.add_argument("--workers", type=int, default=None, help="host decode threads (default: the preset's)")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
@@ -118,6 +123,8 @@ def main(argv=None):
         overrides["kimg_per_tick"] = args.kimg_per_tick
     if args.workers is not None:
         overrides["data_workers"] = args.workers
+    if args.img_snap is not None:
+        overrides["image_snapshot_ticks"] = args.img_snap
     if args.augpipe not in AUGPIPE_SPECS:
         raise SystemExit(f"--augpipe {args.augpipe}: not an ADA pipe preset ({', '.join(AUGPIPE_SPECS)})")
     if args.resume is not None and not os.path.isdir(args.resume):

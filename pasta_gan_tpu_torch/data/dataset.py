@@ -4,14 +4,16 @@ Counterpart of `pasta_gan_tpu/data/dataset.py`: host code builds per-sample
 numpy dicts (image, stickman, keypoints, parsing masks); `prepare_tryon_batch`
 and `prepare_train_batch` move a collated batch to the device and run the
 patch routing there; `prepare_tryon_batch_v18` builds the released-256
-checkpoint's batch.  The try-on batches take the routes' `denorm` argument
-("fused" or "separate", data/warp.py).
+checkpoint's batch, `prepare_tryon_batch_512` the 512x320 checkpoint's
+region-selectable batch and `prepare_tryon_grid_batch` the training
+snapshot's cross-pair batch.  The try-on batches take the routes' `denorm`
+argument ("fused" or "separate", data/warp.py).
 
 Host side: `load_sample` decodes one UPT person record (JPEG image, OpenPose
 JSON, parsing PNG) with the port's own decoders (`data/image_io.py`, no PIL);
-`UvitonDatasetFull` walks the four 256x192 training lists and
-`UvitonDataset256Test` the unpaired test pairs; `SyntheticUvitonDataset` draws
-a fixture without files.  The 512x320 layout's dataset is a later slice.
+`UvitonDatasetFull` walks the four 256x192 training lists,
+`UvitonDataset256Test` the unpaired 256 test pairs and `UvitonDataset512Test`
+the 512x320 ones; `SyntheticUvitonDataset` draws a fixture without files.
 """
 
 from __future__ import annotations
@@ -27,11 +29,15 @@ from . import image_io
 from . import masks as masks_mod
 from . import stickman
 from .warp import (
+    CHANGE_REGIONS,
+    route_patches_512_batch,
     route_patches_batch,
+    route_patches_mix_batch,
     route_patches_transfer_batch,
     route_patches_v19_batch,
     transfer_warp_inputs,
     v19_warp_inputs,
+    warp_inputs_512,
 )
 
 
@@ -138,6 +144,7 @@ class UvitonDataset256Test:
     UPT_subset{1,2}_256_192/test_pairs_front_list_shuffle_0508.txt."""
 
     SUBSETS = ["UPT_subset1_256_192", "UPT_subset2_256_192"]
+    SIZE = (256, 192)  # the records' unpadded frame (H, W)
 
     def __init__(self, path: str, max_size: Optional[int] = None):
         self._path = path
@@ -149,7 +156,7 @@ class UvitonDataset256Test:
             with open(txt) as f:
                 self._pairs += [(ds, *parts[:2]) for parts in (line.strip().split() for line in f) if len(parts) >= 2]
         if not self._pairs:
-            raise IOError(f"no test pairs found under {path}")
+            raise IOError(f"no {self.SIZE[0]} test pairs found under {path}")
         if max_size is not None:
             self._pairs = self._pairs[:max_size]
 
@@ -158,9 +165,29 @@ class UvitonDataset256Test:
 
     def __getitem__(self, idx: int):
         ds, person, garment = self._pairs[idx]
-        return dict(person=load_sample(*record_paths(self._path, ds, person)),
-                    garment=load_sample(*record_paths(self._path, ds, garment)),
+        return dict(person=load_sample(*record_paths(self._path, ds, person), size=self.SIZE),
+                    garment=load_sample(*record_paths(self._path, ds, garment), size=self.SIZE),
                     person_name=person, garment_name=garment)
+
+
+class UvitonDataset512Test(UvitonDataset256Test):
+    """Unpaired 512x320 test pairs: person/garment records named by
+    UPT_subset{1,2}_512_320/test_pairs_front_list_shuffle_0508.txt, loaded
+    at (512, 320) and white-padded to 512x512 (left padding 96).
+    `change_region` ("fullbody", "upperbody" or "lowerbody") picks which
+    garment pieces route; each item carries it."""
+
+    SUBSETS = ["UPT_subset1_512_320", "UPT_subset2_512_320"]
+    SIZE = (512, 320)
+
+    def __init__(self, path: str, change_region: str = "fullbody", max_size: Optional[int] = None):
+        if change_region not in CHANGE_REGIONS:
+            raise ValueError(f"change_region must be one of {CHANGE_REGIONS}, got {change_region!r}")
+        super().__init__(path, max_size)
+        self.change_region = change_region
+
+    def __getitem__(self, idx: int):
+        return dict(super().__getitem__(idx), change_region=self.change_region)
 
 
 class SyntheticUvitonDataset:
@@ -231,26 +258,52 @@ def collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
     return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 
 
-def _tryon_sources(person, garment, dev):
-    def f32(d, k):
-        return torch.as_tensor(d[k], device=dev).float()
+def _f32(d, k, dev):
+    return torch.as_tensor(d[k], device=dev).float()
 
-    p_img = f32(person, "image") / 255.0
-    g_img = f32(garment, "image") / 255.0
-    p_lower_mask = f32(person, "lower_test_mask" if "lower_test_mask" in person else "lower_mask")
-    g_upper_mask = f32(garment, "upper_mask")
-    routing_args = (
-        g_img * g_upper_mask, p_img * p_lower_mask, g_upper_mask, p_lower_mask,
-        f32(garment, "keypoints"), f32(person, "keypoints"),
-    )
-    return p_img, f32(person, "pose"), f32(person, "retain_mask"), routing_args
+
+def _tryon_sources(person, garment, dev):
+    """The unpaired try-on route's arguments: the garment's upper clothes and
+    the person's own lower clothes (the 256 test path's lower grouping where
+    the sample has it), then the two keypoint sets."""
+    p_img = _f32(person, "image", dev) / 255.0
+    g_img = _f32(garment, "image", dev) / 255.0
+    p_lower_mask = _f32(person, "lower_test_mask" if "lower_test_mask" in person else "lower_mask", dev)
+    g_upper_mask = _f32(garment, "upper_mask", dev)
+    return (g_img * g_upper_mask, p_img * p_lower_mask, g_upper_mask, p_lower_mask,
+            _f32(garment, "keypoints", dev), _f32(person, "keypoints", dev))
+
+
+def _person_conditioning(person, dev):
+    """(person image in [-1, 1], retain image, 6-channel pose) of a collated
+    person batch: the stickman in [-1, 1] beside the retain regions."""
+    p_real = _f32(person, "image", dev) / 255.0 * 2.0 - 1.0
+    p_retain = _f32(person, "retain_mask", dev)
+    retain = p_retain * p_real - (1.0 - p_retain)
+    return p_real, retain, torch.cat([_f32(person, "pose", dev) / 127.5 - 1.0, retain], dim=-1)
+
+
+def _tryon_batch(routed, person, dev) -> Dict[str, torch.Tensor]:
+    """The generator's try-on inputs from a route's output and the person
+    batch: a style input of the norm patches, the retain image, the pose,
+    and the denorms in [-1, 1] with their coverage masks."""
+    p_real, retain, pose = _person_conditioning(person, dev)
+    return {
+        "style_input": torch.cat([routed.norm_img, routed.norm_img_lower], dim=-1) * 2.0 - 1.0,
+        "retain": retain,
+        "pose": pose,
+        "denorm_upper_img": routed.denorm_upper_img * 2.0 - 1.0,
+        "denorm_lower_img": routed.denorm_lower_img * 2.0 - 1.0,
+        "denorm_upper_mask": (routed.denorm_upper_img.sum(-1, keepdim=True) > 0).float(),
+        "denorm_lower_mask": (routed.denorm_lower_img.sum(-1, keepdim=True) > 0).float(),
+        "person_img": p_real,
+    }
 
 
 def tryon_warp_inputs(person, garment, box_factor: int = 2, device="cuda") -> dict:
     """The routing kernels' operands for a collated try-on batch (what
     `prepare_tryon_batch` feeds them)."""
-    _, _, _, routing_args = _tryon_sources(person, garment, resolve_device(device))
-    return transfer_warp_inputs(*routing_args, box_factor=box_factor)
+    return transfer_warp_inputs(*_tryon_sources(person, garment, resolve_device(device)), box_factor=box_factor)
 
 
 def prepare_tryon_batch(person, garment, box_factor: int = 2, device="cuda",
@@ -259,40 +312,24 @@ def prepare_tryon_batch(person, garment, box_factor: int = 2, device="cuda",
     pose, the person keeping only its retain regions.  `person`/`garment` are
     collated host dicts (numpy or tensors); returns float32 NHWC tensors on
     `device` with the JAX package's keys and shapes."""
-    p_img, pose, p_retain, routing_args = _tryon_sources(person, garment, resolve_device(device))
-    routed = route_patches_transfer_batch(*routing_args, box_factor=box_factor, denorm=denorm)
-    denorm_upper_mask = (routed.denorm_upper_img.sum(-1, keepdim=True) > 0).float()
-    denorm_lower_mask = (routed.denorm_lower_img.sum(-1, keepdim=True) > 0).float()
-
-    p_real = p_img * 2.0 - 1.0
-    head = p_retain * p_real - (1.0 - p_retain)
-    return {
-        "style_input": torch.cat([routed.norm_img, routed.norm_img_lower], dim=-1) * 2.0 - 1.0,
-        "retain": head,
-        "pose": torch.cat([pose / 127.5 - 1.0, head], dim=-1),
-        "denorm_upper_img": routed.denorm_upper_img * 2.0 - 1.0,
-        "denorm_lower_img": routed.denorm_lower_img * 2.0 - 1.0,
-        "denorm_upper_mask": denorm_upper_mask,
-        "denorm_lower_mask": denorm_lower_mask,
-        "person_img": p_real,
-    }
+    dev = resolve_device(device)
+    routed = route_patches_transfer_batch(*_tryon_sources(person, garment, dev), box_factor=box_factor,
+                                          denorm=denorm)
+    return _tryon_batch(routed, person, dev)
 
 
 def _tryon_sources_v18(person, garment, dev):
-    def f32(d, k):
-        return torch.as_tensor(d[k], device=dev).float()
-
-    p_img = f32(person, "image") / 255.0
-    g_img = f32(garment, "image") / 255.0
-    p_pose = f32(person, "pose") / 255.0  # the released checkpoint's stickman is in [0, 1]
-    g_upper_mask = f32(garment, "upper_mask")
-    p_lower_mask = f32(person, "lower_test_mask" if "lower_test_mask" in person else "lower_mask")
+    p_img = _f32(person, "image", dev) / 255.0
+    g_img = _f32(garment, "image", dev) / 255.0
+    p_pose = _f32(person, "pose", dev) / 255.0  # the released checkpoint's stickman is in [0, 1]
+    g_upper_mask = _f32(garment, "upper_mask", dev)
+    p_lower_mask = _f32(person, "lower_test_mask" if "lower_test_mask" in person else "lower_mask", dev)
     routing_args = (
-        g_img * g_upper_mask, g_upper_mask, f32(garment, "pose") / 255.0,
+        g_img * g_upper_mask, g_upper_mask, _f32(garment, "pose", dev) / 255.0,
         p_img * p_lower_mask, p_lower_mask, p_pose,
-        f32(garment, "keypoints"), f32(person, "keypoints"),
+        _f32(garment, "keypoints", dev), _f32(person, "keypoints", dev),
     )
-    return p_img, p_pose, f32(person, "retain_mask"), routing_args
+    return p_img, p_pose, _f32(person, "retain_mask", dev), routing_args
 
 
 def tryon_warp_inputs_v18(person, garment, box_factor: int = 2, device="cuda") -> dict:
@@ -323,6 +360,54 @@ def prepare_tryon_batch_v18(person, garment, box_factor: int = 2, device="cuda",
         "denorm_lower_mask": (routed.denorm_lower_img.sum(-1, keepdim=True) > 0).float(),
         "person_img": p_real,
     }
+
+
+def _region_sources(person, garment, dev):
+    """The eight image and mask sources of the 512 and grid routes: each
+    sample's upper and lower clothes cut out by its `upper_mask` /
+    `lower_mask`, then the two keypoint sets."""
+    out = []
+    for d in (person, garment):
+        img = _f32(d, "image", dev) / 255.0
+        up, lo = _f32(d, "upper_mask", dev), _f32(d, "lower_mask", dev)
+        out.append((img * up, img * lo, up, lo))
+    return (*out[0], *out[1], _f32(person, "keypoints", dev), _f32(garment, "keypoints", dev))
+
+
+def warp_inputs_512_batch(person, garment, change_region: str = "fullbody", box_factor: int = 2,
+                          pad_x: float = 96.0, device="cuda") -> dict:
+    """The routing kernels' operands for a collated 512 batch (what
+    `prepare_tryon_batch_512` feeds them)."""
+    dev = resolve_device(device)
+    return warp_inputs_512(*_region_sources(person, garment, dev), change_region=change_region,
+                           box_factor=box_factor, pad_x=pad_x)
+
+
+def prepare_tryon_batch_512(person, garment, change_region: str = "fullbody", box_factor: int = 2,
+                            pad_x: float = 96.0, device="cuda", denorm: str = "fused") -> Dict[str, torch.Tensor]:
+    """The 512x320 checkpoint's region-selectable batch
+    (`pasta_gan_tpu/data/dataset.py:prepare_tryon_batch_512`): a 45-channel
+    style input (the 10 norm patches of the region's upper source and the 5
+    of its lower source), the retain image, a 6-channel pose and the denorms
+    re-projected into the person's pose with every mask eroded.  The cut-outs
+    use the plain `upper_mask` / `lower_mask` groups; `pad_x` is the samples'
+    left padding (96 at 512x320).  Float32 NHWC tensors on `device`."""
+    dev = resolve_device(device)
+    routed = route_patches_512_batch(*_region_sources(person, garment, dev), change_region=change_region,
+                                     box_factor=box_factor, pad_x=pad_x, denorm=denorm)
+    return _tryon_batch(routed, person, dev)
+
+
+def prepare_tryon_grid_batch(person, garment, swap: str = "upper", box_factor: int = 2,
+                             device="cuda") -> Dict[str, torch.Tensor]:
+    """The training snapshot's cross-pair batch
+    (`pasta_gan_tpu/data/dataset.py:prepare_tryon_grid_batch`): the person's
+    body wearing the garment provider's top ("upper"), pants ("lower") or
+    both ("full"), from training-path samples.  The try-on batch's keys,
+    float32 NHWC tensors on `device`."""
+    dev = resolve_device(device)
+    routed = route_patches_mix_batch(*_region_sources(person, garment, dev), swap=swap, box_factor=box_factor)
+    return _tryon_batch(routed, person, dev)
 
 
 def erasure_draws(batch_size: int, generator: Optional[torch.Generator] = None):

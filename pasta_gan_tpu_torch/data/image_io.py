@@ -18,6 +18,10 @@ library: 8-bit grey, grey+alpha, RGB and RGBA, palette at 1, 2, 4 and 8 bits
 12-bit and 4-component JPEG, 16-bit, 2/4-bit grey and interlaced PNG raise
 `ValueError` naming the file.
 
+`write_png(img, path)` writes an 8-bit grey [H, W] or RGB [H, W, 3] array
+as an unfiltered PNG (`zlib` and `struct` only): what the try-on CLIs and the
+training snapshot grids write.
+
 The library is built from the checkout at first use into `build/` (nvcc as
 the host compiler driver where it is found, else `cc`) under a name that
 hashes the source and the flags, and loaded with ctypes, which releases the
@@ -30,6 +34,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import threading
 import zlib
@@ -187,6 +192,24 @@ def decode(path: str) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
 def read_image(path: str) -> np.ndarray:
     """`np.asarray(PIL.Image.open(path))`."""
     return decode(path)[0]
+
+
+def write_png(img: np.ndarray, path: str) -> None:
+    """Write a uint8 array, grey [H, W] or RGB [H, W, 3], as a PNG file."""
+    img = np.ascontiguousarray(img)
+    if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"write_png takes uint8 [H, W] or [H, W, 3], got {img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+
+    def chunk(tag: bytes, data: bytes) -> bytes:
+        return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
+
+    color_type = 0 if img.ndim == 2 else 2
+    png = (_PNG_SIG + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
+           + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(png)
 
 
 def _l_weights(rgb: np.ndarray) -> np.ndarray:

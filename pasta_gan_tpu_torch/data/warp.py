@@ -10,10 +10,12 @@ Counterpart of `pasta_gan_tpu/data/warp.py` (the reference's per-sample
   (`== 255` on uint8, here >= 254.5/255);
 * parts composite in order, later parts overwriting earlier ones.
 
-Three routes share the kernels: the unpaired try-on route
+Five routes share the kernels: the unpaired try-on route
 (`route_patches_transfer_batch`), the training path's self-routing
-(`route_patches_batch`) and the released-256 (V19) test route
-(`route_patches_v19_batch`).  On CUDA tensors the NORM warps run as one
+(`route_patches_batch`), the snapshot grid's cross-pair route
+(`route_patches_mix_batch`), the released-256 (V19) test route
+(`route_patches_v19_batch`) and the 512x320 region-selectable route
+(`route_patches_512_batch`).  On CUDA tensors the NORM warps run as one
 `norm_warp` kernel launch.  The DENORM step takes one of two routes, chosen
 by each route's `denorm` argument (the JAX package's
 `TUNING.fused_composite`):
@@ -48,17 +50,25 @@ from ..ops.warp_math import inv3x3
 from .geometry import HAND_PARTS, LOWER_PART_START, NUM_PARTS, part_transforms
 
 __all__ = [
+    "CHANGE_REGIONS",
     "DENORM_ROUTES",
+    "LOWER_PARTS_512",
     "MASK_SATURATION_THRESHOLD",
+    "MIX_SWAPS",
     "RoutedPatches",
+    "RoutedPatches512",
     "RoutedPatchesV19",
     "erode_binary",
+    "mix_warp_inputs",
+    "route_patches_512_batch",
     "route_patches_batch",
+    "route_patches_mix_batch",
     "route_patches_transfer_batch",
     "route_patches_v19_batch",
     "self_warp_inputs",
     "transfer_warp_inputs",
     "v19_warp_inputs",
+    "warp_inputs_512",
     "warp_perspective",
     "warp_perspective_inv",
 ]
@@ -100,32 +110,56 @@ def _stack_ch(x: torch.Tensor) -> torch.Tensor:
 
 
 def _routing_inputs(upper_img, lower_img, upper_mask, lower_mask, M_upper, M_lower, valid_upper, valid_lower,
-                    M_inv, valid_denorm, erode_upper: bool, patch_hw) -> dict:
+                    M_inv, valid_denorm, erode_upper: bool, patch_hw,
+                    lower_parts=tuple(range(LOWER_PART_START, NUM_PARTS)), erode_all: bool = False,
+                    hand_parts=HAND_PARTS) -> dict:
     """Operands of one `norm_warp` + one `composite` launch: the upper source
     normalizes with M_upper (parts 0-9), the lower source with M_lower's
-    parts 6-9 (appended as 10-13), and all 14 patches re-project with M_inv
-    into two composited groups (upper, lower) and the 4 hand masks."""
+    `lower_parts` (appended as 10, 11, ...), and every patch re-projects with
+    M_inv into two composited groups (upper, lower) and the `hand_parts`
+    masks.  `erode_upper` erodes the masks of parts 0-5 before the
+    composite, `erode_all` those of every part."""
     H, W = upper_img.shape[1:3]
     L = LOWER_PART_START
-    n_parts = NUM_PARTS + (NUM_PARTS - L)
+    LP = list(lower_parts)
     return dict(
         # norm: image + mask as one 4-channel frame per source, replicate border
         src_u=torch.cat([upper_img, upper_mask[..., :1]], dim=-1).float().contiguous(),
         src_l=torch.cat([lower_img, lower_mask[..., :1]], dim=-1).float().contiguous(),
-        minv_norm=inv3x3(torch.cat([M_upper, M_lower[:, L:]], dim=1)).contiguous(),
-        valid_norm=torch.cat([valid_upper, valid_lower[:, L:]], dim=1).float().contiguous(),
+        minv_norm=inv3x3(torch.cat([M_upper, M_lower[:, LP]], dim=1)).contiguous(),
+        valid_norm=torch.cat([valid_upper, valid_lower[:, LP]], dim=1).float().contiguous(),
         n_upper=NUM_PARTS,
         patch_hw=patch_hw,
         # denorm + saturate + (erode) + composite into the target frame
-        minv_denorm=inv3x3(torch.cat([M_inv, M_inv[:, L:]], dim=1)).contiguous(),
-        valid_denorm=torch.cat([valid_denorm, valid_denorm[:, L:]], dim=1).float().contiguous(),
+        minv_denorm=inv3x3(torch.cat([M_inv, M_inv[:, LP]], dim=1)).contiguous(),
+        valid_denorm=torch.cat([valid_denorm, valid_denorm[:, LP]], dim=1).float().contiguous(),
         frame_hw=(H, W),
-        groups=(0,) * NUM_PARTS + (1,) * (NUM_PARTS - L),
-        erode_parts=tuple(erode_upper and p < L for p in range(n_parts)),
-        hand_parts=HAND_PARTS,
+        groups=(0,) * NUM_PARTS + (1,) * len(LP),
+        erode_parts=tuple(erode_all or (erode_upper and p < L) for p in range(NUM_PARTS + len(LP))),
+        hand_parts=tuple(hand_parts),
         M_invs=M_inv,
         valid=valid_upper,
     )
+
+
+def _region_sources(person_upper_img, person_lower_img, person_upper_mask, person_lower_mask,
+                    garment_upper_img, garment_lower_img, garment_upper_mask, garment_lower_mask,
+                    person_keypoints, garment_keypoints, upper_from_garment: bool, lower_from_garment: bool,
+                    box_factor: int, img_h: Optional[int], pad_x: float, knee_fallbacks: bool):
+    """The two sources of a cross-pair route, each (image, mask, M, valid)
+    from the person (self-routed with the person's M) or the garment
+    provider (normalized with the garment's M), and the person's M_inv,
+    validity and patch size, for `_routing_inputs`."""
+    H = person_upper_img.shape[1]
+    h, w = H >> box_factor, person_upper_img.shape[2] >> box_factor
+    kw = dict(img_h=img_h or H, patch_w=w, patch_h=h, pad_x=pad_x, knee_fallbacks=knee_fallbacks)
+    Mg, _, valid_g = part_transforms(garment_keypoints, **kw)
+    Mp, Mp_inv, valid_p = part_transforms(person_keypoints, **kw)
+    up = ((garment_upper_img, garment_upper_mask, Mg, valid_g) if upper_from_garment
+          else (person_upper_img, person_upper_mask, Mp, valid_p))
+    lo = ((garment_lower_img, garment_lower_mask, Mg, valid_g) if lower_from_garment
+          else (person_lower_img, person_lower_mask, Mp, valid_p))
+    return (up[0], lo[0], up[1], lo[1], up[2], lo[2], up[3], lo[3], Mp_inv, valid_p), (h, w)
 
 
 def transfer_warp_inputs(
@@ -169,6 +203,42 @@ def self_warp_inputs(upper_img, lower_img, upper_mask, lower_mask, keypoints, bo
                            False, (h, w))
 
 
+MIX_SWAPS = ("upper", "lower", "full")
+
+
+def mix_warp_inputs(
+    person_upper_img: torch.Tensor,  # [B, H, W, 3] target person's own clothes, [0, 1]
+    person_lower_img: torch.Tensor,
+    person_upper_mask: torch.Tensor,  # [B, H, W, 1]
+    person_lower_mask: torch.Tensor,
+    garment_upper_img: torch.Tensor,  # [B, H, W, 3] garment provider's clothes
+    garment_lower_img: torch.Tensor,
+    garment_upper_mask: torch.Tensor,
+    garment_lower_mask: torch.Tensor,
+    person_keypoints: torch.Tensor,  # [B, 18, 3] target pose (denorm geometry)
+    garment_keypoints: torch.Tensor,  # [B, 18, 3]
+    swap: str = "upper",
+    box_factor: int = 2,
+    img_h: Optional[int] = None,
+    pad_x: float = 32.0,
+) -> dict:
+    """Operands of the snapshot grid's cross-pair routing
+    (`pasta_gan_tpu/data/warp.py:route_patches_mix_batch`): each garment
+    region comes from the person (self-routed with the person's M) or the
+    garment provider (normalized with the garment's M): "upper" takes the
+    provider's top and keeps the person's pants, "lower" the reverse, "full"
+    takes both.  Everything re-projects with the person's M_inv; masks of
+    parts 0-5 are eroded and the 4 hand masks are composited, as on the
+    try-on route."""
+    if swap not in MIX_SWAPS:
+        raise ValueError(f"swap must be one of {MIX_SWAPS}, got {swap!r}")
+    sources, patch_hw = _region_sources(
+        person_upper_img, person_lower_img, person_upper_mask, person_lower_mask, garment_upper_img,
+        garment_lower_img, garment_upper_mask, garment_lower_mask, person_keypoints, garment_keypoints,
+        swap in ("upper", "full"), swap in ("lower", "full"), box_factor, img_h, pad_x, knee_fallbacks=True)
+    return _routing_inputs(*sources, True, patch_hw)
+
+
 def _denorm(srcs: torch.Tensor, r: dict, denorm: str):
     """The DENORM step of a route: (group images [B, G, 3, H, W], hand masks
     [B, n_hands, H, W]) from the planar 4-channel patches `srcs`."""
@@ -181,21 +251,24 @@ def _denorm(srcs: torch.Tensor, r: dict, denorm: str):
     raise ValueError(f"denorm must be one of {DENORM_ROUTES}, got {denorm!r}")
 
 
-def _route(r: dict, denorm: str) -> RoutedPatches:
+def _route(r: dict, denorm: str, out=RoutedPatches):
+    """One `norm_warp` launch, then the `denorm` route; the fields of `out`
+    (a NamedTuple type), each built only when `out` has it."""
     patches = norm_warp(r["src_u"], r["src_l"], r["minv_norm"], r["valid_norm"], r["n_upper"], r["patch_hw"])
     g_imgs, hands = _denorm(patches, r, denorm)
     n = r["n_upper"]
-    return RoutedPatches(
-        norm_img=_stack_ch(patches[:, :n, 0:3]),
-        norm_img_lower=_stack_ch(patches[:, n:, 0:3]),
-        denorm_upper_img=g_imgs[:, 0].permute(0, 2, 3, 1),
-        denorm_lower_img=g_imgs[:, 1].permute(0, 2, 3, 1),
-        M_invs=r["M_invs"],
-        denorm_hand_masks=hands[..., None],
-        norm_clothes_masks=_stack_ch(patches[:, :n, 3:4].expand(-1, -1, 3, -1, -1)),
-        norm_clothes_masks_lower=_stack_ch(patches[:, n:, 3:4].expand(-1, -1, 3, -1, -1)),
-        valid=r["valid"],
+    fields = dict(
+        norm_img=lambda: _stack_ch(patches[:, :n, 0:3]),
+        norm_img_lower=lambda: _stack_ch(patches[:, n:, 0:3]),
+        denorm_upper_img=lambda: g_imgs[:, 0].permute(0, 2, 3, 1),
+        denorm_lower_img=lambda: g_imgs[:, 1].permute(0, 2, 3, 1),
+        M_invs=lambda: r["M_invs"],
+        denorm_hand_masks=lambda: hands[..., None],
+        norm_clothes_masks=lambda: _stack_ch(patches[:, :n, 3:4].expand(-1, -1, 3, -1, -1)),
+        norm_clothes_masks_lower=lambda: _stack_ch(patches[:, n:, 3:4].expand(-1, -1, 3, -1, -1)),
+        valid=lambda: r["valid"],
     )
+    return out(**{k: fields[k]() for k in out._fields})
 
 
 def route_patches_batch(*args, denorm: str = "fused", **kwargs) -> RoutedPatches:
@@ -208,6 +281,13 @@ def route_patches_transfer_batch(*args, denorm: str = "fused", **kwargs) -> Rout
     """Unpaired try-on routing (arguments of `transfer_warp_inputs`): one
     `norm_warp` call for the whole batch, then the `denorm` route."""
     return _route(transfer_warp_inputs(*args, **kwargs), denorm)
+
+
+def route_patches_mix_batch(*args, denorm: str = "fused", **kwargs) -> RoutedPatches:
+    """Cross-pair routing of the snapshot try-on grid (arguments of
+    `mix_warp_inputs`): one `norm_warp` call for the whole batch, then the
+    `denorm` route."""
+    return _route(mix_warp_inputs(*args, **kwargs), denorm)
 
 
 # ------------------------------------------------------------ released-256 (V19)
@@ -283,3 +363,63 @@ def route_patches_v19_batch(*args, denorm: str = "fused", **kwargs) -> RoutedPat
         denorm_upper_img=g_imgs[:, 0].permute(0, 2, 3, 1),
         denorm_lower_img=g_imgs[:, 1].permute(0, 2, 3, 1),
     )
+
+
+# ------------------------------------------------------------------- 512x320
+
+# The 512 test path routes the lower garment through parts {0 (torso), 6..9
+# (legs)} (the reference's `if ii == 0 or ii >= 6`).
+LOWER_PARTS_512 = (0, 6, 7, 8, 9)
+CHANGE_REGIONS = ("fullbody", "upperbody", "lowerbody")
+
+
+class RoutedPatches512(NamedTuple):
+    norm_img: torch.Tensor  # [B, h, w, 30] the 10 parts of the upper source x 3ch (part-major)
+    norm_img_lower: torch.Tensor  # [B, h, w, 15] parts {0, 6..9} of the lower source x 3ch
+    denorm_upper_img: torch.Tensor  # [B, H, W, 3]
+    denorm_lower_img: torch.Tensor  # [B, H, W, 3]
+
+
+def warp_inputs_512(
+    person_upper_img: torch.Tensor,  # [B, H, W, 3] person's own upper clothes, [0, 1]
+    person_lower_img: torch.Tensor,  # person's own lower clothes
+    person_upper_mask: torch.Tensor,  # [B, H, W, 1]
+    person_lower_mask: torch.Tensor,
+    garment_upper_img: torch.Tensor,  # garment person's upper clothes
+    garment_lower_img: torch.Tensor,
+    garment_upper_mask: torch.Tensor,
+    garment_lower_mask: torch.Tensor,
+    person_keypoints: torch.Tensor,  # [B, 18, 3]
+    garment_keypoints: torch.Tensor,
+    change_region: str = "fullbody",
+    box_factor: int = 2,
+    img_h: Optional[int] = None,
+    pad_x: float = 96.0,
+) -> dict:
+    """Operands of the 512 region-selectable routing
+    (`pasta_gan_tpu/data/warp.py:route_patches_512_batch`):
+
+    * fullbody: upper and lower sources from the garment (garment's M);
+      upperbody: upper from the garment, lower from the person (person's M);
+      lowerbody: upper from the person, lower from the garment;
+    * all 10 parts normalize the upper source, parts {0, 6..9} the lower
+      source (appended as 10-14): one `norm_warp` launch, n0 = 10, N = 15;
+    * every patch re-projects with the person's M_inv and validity, every
+      mask is 5x5-eroded, the upper parts composite into group 0 and the
+      lower ones, in the order 0, 6, 7, 8, 9, into group 1; no hand parts.
+
+    The 512 crop has no knee->ankle fallback (`knee_fallbacks=False`)."""
+    if change_region not in CHANGE_REGIONS:
+        raise ValueError(f"change_region must be one of {CHANGE_REGIONS}, got {change_region!r}")
+    sources, patch_hw = _region_sources(
+        person_upper_img, person_lower_img, person_upper_mask, person_lower_mask, garment_upper_img,
+        garment_lower_img, garment_upper_mask, garment_lower_mask, person_keypoints, garment_keypoints,
+        change_region != "lowerbody", change_region != "upperbody", box_factor, img_h, pad_x,
+        knee_fallbacks=False)
+    return _routing_inputs(*sources, True, patch_hw, lower_parts=LOWER_PARTS_512, erode_all=True, hand_parts=())
+
+
+def route_patches_512_batch(*args, denorm: str = "fused", **kwargs) -> RoutedPatches512:
+    """512 region-selectable routing (arguments of `warp_inputs_512`): one
+    `norm_warp` call for the whole batch, then the `denorm` route."""
+    return _route(warp_inputs_512(*args, **kwargs), denorm, RoutedPatches512)

@@ -2,7 +2,8 @@
 
 The reverse of `pasta_gan_tpu/io/torch_import.py:_ref_key`, kept here so the
 port never imports the JAX package.  `variables` is the JAX package's nested
-dict ({"params": {...}}) with numpy (or array-like) leaves.
+dict ({"params": {...}}, with a generator's "buffers" beside it) with
+numpy (or array-like) leaves.
 
 Layout translations:
   conv weight   HWIO            -> OIHW      (transpose 3, 2, 0, 1)
@@ -73,18 +74,22 @@ def port_key(path: Tuple[str, ...]) -> Tuple[str, str]:
 
 
 def state_dict_from_jax(variables, expected: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-    """Translate JAX GeneratorFull or GeneratorV18 `variables` into a port
-    state_dict (the V18 mask heads `m_weight1` / `m_weight2` are 1x1 HWIO
-    convs like every other weight).
+    """Translate JAX GeneratorFull, GeneratorV18 or Generator512 `variables`
+    into a port state_dict (the V18 mask heads `m_weight1` / `m_weight2` are
+    1x1 HWIO convs like every other weight; the "buffers" collection holds
+    each synthesis layer's `noise_const` map, a persistent buffer of the
+    port).
 
-    Raises on a collection other than "params", and, when `expected` (the
-    target module's state_dict) is given, on any missing, extra or mis-shaped
-    key.  Load the result with `load_state_dict(..., strict=True)`."""
-    extra_collections = set(variables) - {"params"}
+    Raises on a collection other than "params" and "buffers", and, when
+    `expected` (the target module's state_dict) is given, on any missing,
+    extra or mis-shaped key.  Load the result with
+    `load_state_dict(..., strict=True)`."""
+    extra_collections = set(variables) - {"params", "buffers"}
     if extra_collections:
         raise KeyError(f"unsupported JAX collections: {sorted(extra_collections)}")
     out: Dict[str, torch.Tensor] = {}
-    for path, leaf in _flatten(variables["params"]):
+    leaves = [(path, leaf) for coll in ("params", "buffers") for path, leaf in _flatten(variables.get(coll, {}))]
+    for path, leaf in leaves:
         key, kind = port_key(path)
         a = np.asarray(leaf, dtype=np.float32)
         if kind == "dense" and a.ndim == 2:

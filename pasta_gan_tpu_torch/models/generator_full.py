@@ -39,7 +39,9 @@ def cat_feats_dict(feats) -> Dict[str, torch.Tensor]:
 
 
 class GeneratorFull(nn.Module):
-    variant = "full"  # the synthesis variant; a snapshot records it (cli/test.py:load_generator)
+    variant = "full"  # a snapshot records it (cli/test.py:load_generator, models.GENERATORS)
+    synthesis_variant = "full"  # the last style block's head (nn/synthesis.py:SynthesisNetworkFull.VARIANTS)
+    start_res, merge_min_res, style_extra_convs = 4, 16, 3  # pyramid start, retain merge, style encoder depth
 
     def __init__(self, z_dim=0, c_dim=512, w_dim=512, img_resolution=256, img_channels=3,
                  mapping_layers=1, channel_base=16384, channel_max=512, conv_clamp=256.0,
@@ -54,14 +56,17 @@ class GeneratorFull(nn.Module):
         self.synthesis = SynthesisNetworkFull(
             w_dim=w_dim, img_resolution=img_resolution, img_channels=img_channels,
             channel_base=channel_base, channel_max=channel_max, conv_clamp=conv_clamp,
-            use_noise=use_noise, variant=self.variant,
+            use_noise=use_noise, variant=self.synthesis_variant, start_res=self.start_res,
+            merge_min_res=self.merge_min_res,
         )
         self.num_ws = self.synthesis.num_ws
         self.mapping = MappingNetwork(z_dim, c_dim, w_dim, self.num_ws, num_layers=mapping_layers)
-        n_down = int(math.log2(img_resolution)) - 2
+        # the pose image down to the pyramid's first resolution, at most 6 times
+        n_down = int(math.log2(img_resolution)) - int(math.log2(self.start_res))
         self.const_encoding = ConstEncoderNetwork(
-            6, output_nc=self.synthesis.channels(4), ngf=64, n_downsampling=min(n_down, 6))
-        self.style_encoding = StyleEncoderNetworkV16(style_input_nc, output_nc=512, ngf=64)
+            6, output_nc=self.synthesis.channels(self.start_res), ngf=64, n_downsampling=min(n_down, 6))
+        self.style_encoding = StyleEncoderNetworkV16(style_input_nc, output_nc=512, ngf=64,
+                                                     extra_convs=self.style_extra_convs)
         self.set_dtype(dtype)
 
     def set_dtype(self, dtype: torch.dtype) -> "GeneratorFull":

@@ -15,7 +15,7 @@ from .generator_full import GeneratorFull, nhwc, nchw
 
 
 class GeneratorV18(GeneratorFull):
-    variant = "v18"
+    variant = synthesis_variant = "v18"
 
     def __init__(self, style_input_nc: int = 60, **kwargs):
         super().__init__(style_input_nc=style_input_nc, **kwargs)

@@ -47,6 +47,11 @@ class SynthesisLayer(Layer):
         self.noise_strength = nn.Parameter(torch.zeros(())) if use_noise else None
         self.bias = nn.Parameter(torch.zeros(out_channels))
         _filter_buffer(self, resample_filter)
+        if use_noise:
+            # the fixed noise map of noise_mode="const" (the training loop's snapshot grids):
+            # model state like the reference's buffer, drawn for each layer with its
+            # parameters, saved in the state_dict and carried from JAX's "buffers"
+            self.register_buffer("noise_const", torch.empty(resolution, resolution))
         self.reset_parameters()
 
     def reset_parameters(self, generator=None):
@@ -55,11 +60,13 @@ class SynthesisLayer(Layer):
             self.bias.zero_()
             if self.noise_strength is not None:
                 self.noise_strength.zero_()
+        if self.use_noise:
+            _normal_(self.noise_const, generator)
 
     def forward(self, x, w, noise_mode: str = "random", gain: float = 1.0,
                 generator: Optional[torch.Generator] = None):
-        if noise_mode not in ("random", "none"):
-            raise ValueError(f"noise_mode must be 'random' or 'none', got {noise_mode!r}")
+        if noise_mode not in ("random", "const", "none"):
+            raise ValueError(f"noise_mode must be 'random', 'const' or 'none', got {noise_mode!r}")
         dt = self.compute_dtype
         styles = self.affine(w)
         noise = None
@@ -67,6 +74,8 @@ class SynthesisLayer(Layer):
             shape = (x.shape[0], 1, self.resolution, self.resolution)
             noise = torch.randn(shape, generator=generator, device=x.device, dtype=dt)
             noise = noise * self.noise_strength.to(dt)
+        elif self.use_noise and noise_mode == "const":
+            noise = (self.noise_const * self.noise_strength).to(dt)[None, None]
         x = modulated_conv2d(
             x.to(dt), self.weight.to(dt), styles, noise=noise, up=self.up,
             padding=self.kernel_size // 2,
@@ -181,23 +190,28 @@ class SynthesisBlockFull(Layer):
 
 
 class SynthesisNetworkFull(nn.Module):
-    """Skip pyramid 4 -> img_resolution + SPADE refinement + texture finetune head."""
+    """Skip pyramid start_res -> img_resolution + SPADE refinement + texture finetune head.
+
+    The 512 generator starts its pyramid at 8 (`start_res=8`); its SPADE
+    blocks and texture block keep the 256 names (`spade_b128_*` at the
+    second-to-last resolution, `texture_b256` at the last), as the reference
+    checkpoint does."""
 
     VARIANTS = {"full": "parsing6", "v18": "masks2"}  # variant -> the last style block's ToRGB head
 
     def __init__(self, w_dim, img_resolution, img_channels, channel_base=32768, channel_max=512,
-                 conv_clamp=None, use_noise=True, merge_min_res=16, variant="full"):
+                 conv_clamp=None, use_noise=True, merge_min_res=16, variant="full", start_res=4):
         super().__init__()
         if variant not in self.VARIANTS:
             raise ValueError(f"variant must be one of {sorted(self.VARIANTS)}, got {variant!r}")
         self.w_dim, self.img_resolution, self.variant = w_dim, img_resolution, variant
-        self.channel_base, self.channel_max = channel_base, channel_max
-        self.block_resolutions = [2**i for i in range(2, int(math.log2(img_resolution)) + 1)]
+        self.channel_base, self.channel_max, self.start_res = channel_base, channel_max, start_res
+        self.block_resolutions = [2**i for i in range(int(math.log2(start_res)), int(math.log2(img_resolution)) + 1)]
         common = dict(w_dim=w_dim, img_channels=img_channels, merge_min_res=merge_min_res,
                       conv_clamp=conv_clamp, use_noise=use_noise, head=self.VARIANTS[variant])
         for res in self.block_resolutions:
             setattr(self, f"b{res}", SynthesisBlockFull(
-                self.channels(res // 2) if res > 4 else 0, self.channels(res), resolution=res,
+                self.channels(res // 2) if res > start_res else 0, self.channels(res), resolution=res,
                 is_last=res == img_resolution, is_style=True, **common))
         ch = self.channels(self.block_resolutions[-2])
         for i in (1, 2, 3):
@@ -223,7 +237,7 @@ class SynthesisNetworkFull(nn.Module):
 
     @property
     def num_ws(self) -> int:
-        return sum(1 if res == 4 else 2 for res in self.block_resolutions) + 1
+        return sum(1 if res == self.start_res else 2 for res in self.block_resolutions) + 1
 
     def get_spade_feat(self, mask, denorm_mask, denorm_input):
         """Fill person-visible-but-garment-missing regions with the average of

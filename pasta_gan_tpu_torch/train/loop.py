@@ -8,7 +8,10 @@ then Gmain + Dmain (`train_step`) every step and R1 (`d_r1_step`) every
 appends one JSON line to `stats.jsonl`.  Every `network_snapshot_ticks` ticks
 (tick > 0), and when the run ends, it saves a network snapshot of G_ema
 (`network-snapshot-<kimg>.pt`, what `cli/test.py` serves) and a train-state
-checkpoint (`train-state-latest.pt`, what `--resume` reads).
+checkpoint (`train-state-latest.pt`, what `--resume` reads).  Unless
+`image_snapshot_ticks` is 0, it writes the image grids of `SnapshotGrids`
+once at the start and every `image_snapshot_ticks` ticks, tick 0 and the
+last included.
 
 Phase times are host wall times of work that ends in a synchronise (the
 stats read back each step), so they are what the card took plus what the
@@ -31,9 +34,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..data.dataset import collate, prepare_train_batch
+from ..data.dataset import collate, prepare_train_batch, prepare_tryon_grid_batch
 from ..io.checkpoints import restore_train_state, save_snapshot, save_train_state
 from ..runtime.config import TrainConfig, to_json
+from ..utils import parsing_to_rgb, save_image_grid
 from .step import GANTrainer
 
 
@@ -213,6 +217,55 @@ def _mean(records: List[Dict[str, float]], key: str) -> float:
     return float(np.mean(vals)) if vals else float("nan")
 
 
+class SnapshotGrids:
+    """The training run's image grids (`pasta_gan_tpu/train/loop.py:184-262`),
+    written as PNGs into the run directory from a fixed batch: the first
+    grid_n = min(16, batch, len(dataset)) samples, routed once by
+    `prepare_train_batch` with erasure draws from a CPU generator seeded 1234.
+
+    At construction: `reals.png`, `init_denorm_upper.png`,
+    `init_denorm_lower.png` and `init_retain.png`.  Each `save(G, tag)`:
+    `fakes<tag>.png` (G's finetune images), `parsing<tag>.png` (its parsing
+    argmax through the label palette) and `tryon_grid<tag>.png`, a gnum x gnum
+    matrix (gnum = min(tryon_grid_n, grid_n), at least 2) of person r wearing
+    provider c's garments, routed by `prepare_tryon_grid_batch`: the
+    provider's pants in the first third of the rows, both pieces in the
+    second, the top in the last.  G runs with the fixed noise maps
+    (`noise_mode="const"`)."""
+
+    def __init__(self, run_dir: str, dataset, config: TrainConfig, device):
+        self.run_dir, self.device = run_dir, device
+        self.grid_n = min(16, config.batch_size, len(dataset))
+        self.gnum = min(config.tryon_grid_n, self.grid_n)
+        self.host = collate([dataset[i] for i in range(self.grid_n)])
+        self.batch = prepare_train_batch(self.host, torch.Generator().manual_seed(1234), device=device)
+        for name, key in (("reals", "real_img"), ("init_denorm_upper", "denorm_upper_img"),
+                          ("init_denorm_lower", "denorm_lower_img"), ("init_retain", "retain")):
+            save_image_grid(self.batch[key].cpu().numpy(), os.path.join(run_dir, f"{name}.png"))
+
+    @torch.no_grad()
+    def _forward(self, G, b):
+        _, finetune, parsing = G(None, b["style_input"], b["retain"], b["pose"], b["denorm_upper_img"],
+                                 b["denorm_lower_img"], b["denorm_upper_mask"], b["denorm_lower_mask"],
+                                 noise_mode="const")
+        return finetune.float().cpu().numpy(), parsing.float().cpu().numpy()
+
+    def save(self, G, tag: str) -> None:
+        fakes, parsing = self._forward(G, self.batch)
+        save_image_grid(fakes, os.path.join(self.run_dir, f"fakes{tag}.png"))
+        save_image_grid(parsing_to_rgb(parsing), os.path.join(self.run_dir, f"parsing{tag}.png"), drange=(0, 1))
+        if self.gnum < 2:
+            return
+        g, gap = self.gnum, max(self.gnum // 3, 1)
+        garment = {k: v[:g] for k, v in self.host.items()}
+        rows = []
+        for r in range(g):
+            person = {k: np.repeat(v[r:r + 1], g, axis=0) for k, v in self.host.items()}
+            swap = "lower" if r < gap else ("full" if r < 2 * gap else "upper")
+            rows.append(self._forward(G, prepare_tryon_grid_batch(person, garment, swap=swap, device=self.device))[0])
+        save_image_grid(np.concatenate(rows, axis=0), os.path.join(self.run_dir, f"tryon_grid{tag}.png"), grid_cols=g)
+
+
 def _save_snapshot(run_dir: str, state, config: TrainConfig, cur_nimg: int, verbose: bool) -> None:
     snap = os.path.join(run_dir, f"network-snapshot-{cur_nimg // 1000:06d}.pt")
     save_snapshot(snap, state.G_ema.state_dict(), state.w_avg,
@@ -243,7 +296,7 @@ def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg
 
     data_gen = torch.Generator().manual_seed(config.random_seed + 1)
     d_reg_interval = config.d_reg_interval or 0
-    snap_ticks = config.network_snapshot_ticks
+    snap_ticks, img_ticks = config.network_snapshot_ticks, config.image_snapshot_ticks
     cur_nimg = state.step * config.batch_size
     tick_start_nimg, cur_tick, batch_idx = cur_nimg, 0, 0
     start_time = tick_start_time = time.time()
@@ -253,6 +306,7 @@ def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg
         print(f"Training for {total_kimg} kimg (batch {config.batch_size}) on {device}...")
     loader = InfiniteLoader(dataset, config.batch_size, seed=config.random_seed, num_workers=config.data_workers)
     with loader, open(os.path.join(run_dir, "stats.jsonl"), "a") as stats_file:
+        grids = SnapshotGrids(run_dir, dataset, config, device) if img_ticks else None
         while True:
             t0 = time.time()
             batch = prepare_train_batch(next(loader), data_gen, device=device)
@@ -291,6 +345,8 @@ def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg
                       f"time {tick_end - start_time:<8.1f}s sec/kimg {sec_per_kimg:<8.2f} "
                       f"augment {line['Progress/augment_p']:.3f} G/loss {line['Loss/G/loss']:.3f} "
                       f"D/loss {line['Loss/D/loss']:.3f}{r1}", flush=True)
+            if grids is not None and (done or cur_tick % img_ticks == 0):
+                grids.save(state.G_ema, f"{cur_nimg // 1000:06d}")
             # the JAX loop's cadence; the port also saves a run that ends in tick 0
             if done or (snap_ticks and cur_tick > 0 and cur_tick % snap_ticks == 0):
                 _save_snapshot(run_dir, state, config, cur_nimg, verbose)

@@ -12,7 +12,11 @@ layout:
   train_pairs_front_list_0508.txt;
 * train_random_mask_acgpn/ with 3 masks at 256x192 (modes L, 1 and RGB);
 * UPT_subset1_256_192 with 8 persons and 16 lines of
-  test_pairs_front_list_shuffle_0508.txt.
+  test_pairs_front_list_shuffle_0508.txt;
+* UPT_subset1_512_320 with 4 persons at 512x320 (the same figure scaled 2x
+  about the frame's centre line) and 8 lines of
+  test_pairs_front_list_shuffle_0508.txt, written after everything else so
+  that the 256 files do not depend on them.
 
 The records cover JPEGs at 4:2:0, 4:2:2 and 4:4:4 and at qualities 75 and 95
 (one with optimized Huffman tables, one with restart markers), one grey JPEG,
@@ -23,7 +27,9 @@ Images mix smooth texture with flat regions and sharp label edges.
 MANIFEST.json holds, for every image file, the shape, dtype and sha256 of
 `np.asarray(PIL.Image.open(p))` (boolean arrays hashed as 0/1 bytes); for every ACGPN mask, those of
 `np.asarray(PIL.Image.open(p).convert("L").resize((256, 256)))`; and for
-every record, those of each array of the JAX package's `load_sample`.
+every 256 record, those of each array of the JAX package's `load_sample`
+("records"), and for every 512 record those of `load_sample(...,
+size=(512, 320))` ("records_512").
 """
 
 import argparse
@@ -61,9 +67,14 @@ TRAIN = [
 TEST = [("UPT_subset1_256_192", f"upt_{i:04d}.jpg",
          dict(quality=(95, 75)[i % 2], subsampling=(2, 0, 2, 1)[i % 4]), "LP"[i % 2],
          ("ok", "ok", "low_conf", "ok", "empty", "ok", "outside", "ok")[i]) for i in range(8)]
+TEST_512 = [("UPT_subset1_512_320", f"upt512_{i:04d}.jpg", dict(quality=(75, 90)[i % 2], subsampling=(2, 1)[i // 2]),
+             "LP"[i % 2], ("ok", "low_conf", "ok", "outside")[i]) for i in range(4)]
+SIZE_512 = (512, 320)
 
 
-def keypoints(rng, case):
+def keypoints(rng, case, size=(256, 192)):
+    """The synthetic figure's joints in a frame of `size` (H, W): drawn in
+    the 256x192 frame, then scaled by H / 256 about the vertical centre line."""
     k = np.zeros((18, 3), np.float32)
     for i, (x, y) in BASE_KPS.items():
         k[i] = (x + rng.normal(0, 5), y + rng.normal(0, 5), rng.uniform(0.4, 0.95))
@@ -71,37 +82,44 @@ def keypoints(rng, case):
         k[6, 2] = 0.05  # left elbow below MIN_CONF: its limbs and the forearm mask are skipped
     if case == "outside":
         k[4, :2] = (-6.5, 150.25)  # right wrist left of the frame, confident
+    if size != (256, 192):
+        s = size[0] / 256
+        k[:, 0] = (k[:, 0] - 96) * s + size[1] / 2
+        k[:, 1] *= s
     return k
 
 
-def parsing_map(k):
+def parsing_map(k, size=(256, 192)):
     """19-label parsing painted from the keypoints: head, upper garment,
-    pants, arms (14, 15), legs, shoes, neck."""
-    p = np.zeros((256, 192), np.uint8)
-    yy, xx = np.mgrid[:256, :192]
+    pants, arms (14, 15), legs, shoes, neck; widths scale with the frame."""
+    H, W = size
+    s = H / 256
+    p = np.zeros((H, W), np.uint8)
+    yy, xx = np.mgrid[:H, :W]
 
     def rect(x0, y0, x1, y1, label):
         p[max(0, int(y0)):max(0, int(y1)), max(0, int(x0)):max(0, int(x1))] = label
 
-    p[(yy - k[0][1]) ** 2 + (xx - k[0][0]) ** 2 < 17 ** 2] = 13
-    rect(k[1][0] - 6, k[1][1] - 12, k[1][0] + 6, k[1][1], 10)
+    p[(yy - k[0][1]) ** 2 + (xx - k[0][0]) ** 2 < (17 * s) ** 2] = 13
+    rect(k[1][0] - 6 * s, k[1][1] - 12 * s, k[1][0] + 6 * s, k[1][1], 10)
     rect(k[2][0], k[2][1], k[5][0], k[8][1], 5)
-    rect(k[8][0] - 8, k[8][1], k[11][0] + 8, k[9][1] + 20, 9)
-    rect(k[3][0] - 6, k[3][1] - 10, k[3][0] + 6, k[4][1] + 8, 15)
-    rect(k[6][0] - 6, k[6][1] - 10, k[6][0] + 6, k[7][1] + 8, 14)
-    rect(k[9][0] - 7, k[9][1] + 20, k[9][0] + 7, k[10][1], 16)
-    rect(k[12][0] - 7, k[12][1] + 20, k[12][0] + 7, k[13][1], 17)
-    rect(k[10][0] - 8, k[10][1], k[10][0] + 8, 255, 18)
-    rect(k[13][0] - 8, k[13][1], k[13][0] + 8, 255, 19)
-    p[(yy - k[0][1] + 12) ** 2 + (xx - k[0][0]) ** 2 < 9 ** 2] = 2  # hair
+    rect(k[8][0] - 8 * s, k[8][1], k[11][0] + 8 * s, k[9][1] + 20 * s, 9)
+    rect(k[3][0] - 6 * s, k[3][1] - 10 * s, k[3][0] + 6 * s, k[4][1] + 8 * s, 15)
+    rect(k[6][0] - 6 * s, k[6][1] - 10 * s, k[6][0] + 6 * s, k[7][1] + 8 * s, 14)
+    rect(k[9][0] - 7 * s, k[9][1] + 20 * s, k[9][0] + 7 * s, k[10][1], 16)
+    rect(k[12][0] - 7 * s, k[12][1] + 20 * s, k[12][0] + 7 * s, k[13][1], 17)
+    rect(k[10][0] - 8 * s, k[10][1], k[10][0] + 8 * s, H - 1, 18)
+    rect(k[13][0] - 8 * s, k[13][1], k[13][0] + 8 * s, H - 1, 19)
+    p[(yy - k[0][1] + 12 * s) ** 2 + (xx - k[0][0]) ** 2 < (9 * s) ** 2] = 2  # hair
     return p
 
 
 def person_image(rng, p):
     """Flat white background, a smooth gradient per label and sinusoidal
     stripes on the garments (AC coefficients and chroma edges)."""
-    yy, xx = np.mgrid[:256, :192].astype(np.float32)
-    img = np.full((256, 192, 3), 250.0, np.float32)
+    H, W = p.shape
+    yy, xx = np.mgrid[:H, :W].astype(np.float32)
+    img = np.full((H, W, 3), 250.0, np.float32)
     for label in np.unique(p)[1:]:
         base = rng.uniform(40, 215, 3)
         m = p == label
@@ -138,12 +156,12 @@ def digest(a):
     return {"shape": list(a.shape), "dtype": str(a.dtype), "sha256": hashlib.sha256(raw.tobytes()).hexdigest()}
 
 
-def write_record(rng, root, ds, person, jpeg_opts, parsing_mode, case):
+def write_record(rng, root, ds, person, jpeg_opts, parsing_mode, case, size=(256, 192)):
     base = os.path.join(root, ds)
     for sub in ("image", "keypoints", "parsing"):
         os.makedirs(os.path.join(base, sub), exist_ok=True)
-    k = keypoints(rng, case)
-    p = parsing_map(k)
+    k = keypoints(rng, case, size)
+    p = parsing_map(k, size)
     save_jpeg(person_image(rng, p), os.path.join(base, "image", person), jpeg_opts)
     people = [] if case == "empty" else [{"person_id": [-1], "pose_keypoints_2d": [round(float(v), 3) for v in k.flatten()]}]
     with open(os.path.join(base, "keypoints", person.replace(".jpg", "_keypoints.json")), "w") as f:
@@ -172,7 +190,7 @@ def acgpn_masks(rng, root):
 def manifest(root):
     from pasta_gan_tpu.data.dataset import load_sample  # the oracle
 
-    out = {"files": {}, "acgpn_l256": {}, "records": {}}
+    out = {"files": {}, "acgpn_l256": {}, "records": {}, "records_512": {}}
     for dirpath, _, names in sorted(os.walk(root)):
         for name in sorted(names):
             path = os.path.join(dirpath, name)
@@ -181,12 +199,13 @@ def manifest(root):
                 out["files"][rel] = digest(np.asarray(PIL.Image.open(path)))
             if rel.startswith("train_random_mask_acgpn"):
                 out["acgpn_l256"][rel] = digest(np.asarray(PIL.Image.open(path).convert("L").resize((256, 256))))
-    for ds, person, *_ in TRAIN + TEST:
-        suffix = ".png" if ds == "MPV_256_192" else "_label.png"
-        rec = (os.path.join(root, ds, "image", person),
-               os.path.join(root, ds, "keypoints", person.replace(".jpg", "_keypoints.json")),
-               os.path.join(root, ds, "parsing", person.replace(".jpg", suffix)))
-        out["records"][f"{ds}/{person}"] = {k: digest(v) for k, v in load_sample(*rec).items()}
+    for key, recs, size in (("records", TRAIN + TEST, (256, 192)), ("records_512", TEST_512, SIZE_512)):
+        for ds, person, *_ in recs:
+            suffix = ".png" if ds == "MPV_256_192" else "_label.png"
+            rec = (os.path.join(root, ds, "image", person),
+                   os.path.join(root, ds, "keypoints", person.replace(".jpg", "_keypoints.json")),
+                   os.path.join(root, ds, "parsing", person.replace(".jpg", suffix)))
+            out[key][f"{ds}/{person}"] = {k: digest(v) for k, v in load_sample(*rec, size=size).items()}
     return out
 
 
@@ -208,6 +227,10 @@ def main(argv=None):
     with open(os.path.join(root, "UPT_subset1_256_192", "test_pairs_front_list_shuffle_0508.txt"), "w") as f:
         f.writelines(f"{TEST[i % 8][1]} {TEST[(3 * i + 1) % 8][1]}\n" for i in range(16))
     acgpn_masks(rng, root)
+    for rec in TEST_512:
+        write_record(rng, root, *rec, size=SIZE_512)
+    with open(os.path.join(root, "UPT_subset1_512_320", "test_pairs_front_list_shuffle_0508.txt"), "w") as f:
+        f.writelines(f"{TEST_512[i % 4][1]} {TEST_512[(i + 1 + i // 4) % 4][1]}\n" for i in range(8))
     with open(os.path.join(root, "MANIFEST.json"), "w") as f:
         json.dump({"seed": args.seed, **manifest(root)}, f, indent=1, sort_keys=True)
     size = sum(os.path.getsize(os.path.join(d, n)) for d, _, ns in os.walk(root) for n in ns)

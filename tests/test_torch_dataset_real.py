@@ -295,7 +295,8 @@ def test_cli_train_on_real_data_saves_snapshots_by_tick(tmp_path, capsys):
     try:
         out = cli_train.main(["--outdir", str(tmp_path), "--data", FIXTURE, "--workers", "3", "--batch", "2",
                               "--kimg", "0.006", "--kimg_per_tick", "0.002", "--snap", "1", "--gamma", "5",
-                              "--device", "cpu", "--fmaps", str(256 / 32768), "--vgg_weight", "0", "--aug", "noaug"])
+                              "--device", "cpu", "--fmaps", str(256 / 32768), "--vgg_weight", "0", "--aug", "noaug",
+                              "--img_snap", "0"])
     finally:
         torch.set_num_threads(n)
     records, state = out["records"], out["state"]

@@ -42,10 +42,12 @@ def _inputs(seed=0, N=1, R=RES):
 
 def _jax_variables(gen, inputs, seed=0):
     """The JAX generator's variable tree (from eval_shape: no compile), every
-    leaf drawn from a numpy seed with its init's scale."""
+    leaf drawn from a numpy seed with its init's scale.  Initialised with
+    noise_mode="const", as the JAX trainer does, so the tree holds the
+    "buffers" collection of noise_const maps beside "params"."""
     shapes = jax.eval_shape(lambda: gen.init(
         {"params": jax.random.PRNGKey(0), "noise": jax.random.PRNGKey(1)}, None,
-        **{k: jnp.asarray(v) for k, v in inputs.items()}, noise_mode="random"))
+        **{k: jnp.asarray(v) for k, v in inputs.items()}, noise_mode="const"))
     rng = np.random.default_rng(seed)
 
     def scaled(names, x, leaf):
@@ -57,11 +59,14 @@ def _jax_variables(gen, inputs, seed=0):
             return x / 0.01  # lr_multiplier
         return x
 
-    def draw(path, leaf):
+    def draw(coll, path, leaf):
         x = rng.standard_normal(leaf.shape).astype(np.float32)
-        return np.asarray(scaled([p.key for p in path], x, leaf), np.float32)
+        return np.asarray(scaled([coll] + [p.key for p in path], x, leaf), np.float32)
 
-    return jax.tree_util.tree_map_with_path(draw, shapes)
+    # the parameters first, then the buffers: each parameter gets the draw it had
+    # when the tree held parameters alone
+    return {coll: jax.tree_util.tree_map_with_path(lambda path, leaf: draw(coll, path, leaf), shapes[coll])
+            for coll in ("params", "buffers")}
 
 
 def _port_from_jax(variables, **cfg):
@@ -103,6 +108,8 @@ def test_state_dict_from_jax_rejects_mismatches():
         state_dict_from_jax(bad, expected)
     with pytest.raises(KeyError):
         state_dict_from_jax(dict(v, buffers={}), expected)
+    with pytest.raises(KeyError):
+        state_dict_from_jax(dict(v, batch_stats={}), expected)
 
 
 @pytest.mark.parametrize("pack_tail", [True, False])

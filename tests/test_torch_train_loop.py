@@ -26,7 +26,7 @@ from pasta_gan_tpu_torch.train.step import GANTrainer
 
 RES, N = 16, 4
 THIN = ["--device", "cpu", "--synthetic", "2", "--batch", "2", "--fmaps", str(256 / 32768), "--vgg_weight", "0",
-        "--aug", "noaug"]
+        "--img_snap", "0", "--aug", "noaug"]  # grids: tests/test_torch_grids.py
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -100,6 +100,7 @@ def test_cli_train_two_steps_on_cpu_then_resume(tmp_path):
             assert v == v and abs(v) != float("inf"), (k, v)
     files = sorted(os.listdir(run_dir))
     assert "network-snapshot-000000.pt" in files and "train-state-latest.pt" in files
+    assert not [f for f in files if f.endswith(".png")]  # --img_snap 0 writes no grid
     with open(os.path.join(run_dir, "stats.jsonl")) as f:
         ticks = [json.loads(line) for line in f]
     assert ticks[-1]["Progress/step"] == 2
