@@ -88,6 +88,18 @@ Phases, each fatal on failure:
    `--snap 2` (a snapshot is saved at step 3 and at the end) and no image
    grids (`--img_snap 0`, so no grid save gives the loader slack), printing
    `Timing/data` beside Gmain+Dmain for each step.
+10. Metrics phase (`metrics`): `cli.calc_metrics` over the Full snapshot of
+   phase 3 with random-weight InceptionV3 and VGG16/LPIPS detector files:
+   FID, KID, PR and IS over 64 synthetic pairs at batch 32
+   (`metrics_network`), FID of `serving_real`'s PNGs against the fixture's
+   images with `--resolution 256` (`metrics_folder`, no kernel), ppl2_wend
+   over 64 samples with the LPIPS distance (`metrics_ppl`), every value
+   finite; each path launches its kernels exactly as often as its batches
+   give.  InceptionV3 and VGG16 features and the LPIPS distance on the card
+   against the CPU, and FID from the card's features against FID from the
+   CPU's; the detectors' rates beside their FLOP bounds, the network
+   source's images/s (synthetic and `--dataroot` pairs), the host formulas'
+   times, a projected fid50k_full wall time and peak memory.
 Each path's launch counts are set to 0 just before it runs and read just
 after; each path must launch exactly its kernels (`PATH_KERNELS`).  The
 training phase also counts down2's launches by (pad, dtype, input shape) in
@@ -132,8 +144,17 @@ FUSED = {"norm_warp", "composite", "up2", "down2"}
 SEPARATE = {"norm_warp", "denorm_warp", "up2", "down2"}
 PATH_KERNELS = {"serving_full": FUSED, "serving_v18_fused": FUSED, "serving_v18_separate": SEPARATE,
                 "serving_512_fused": FUSED, "serving_512_separate": SEPARATE, "training": FUSED,
-                "training_ada": FUSED, "serving_real": FUSED, "training_real": FUSED}
+                "training_ada": FUSED, "serving_real": FUSED, "training_real": FUSED,
+                "metrics_network": FUSED, "metrics_folder": set(), "metrics_ppl": FUSED}
 FIXTURE = os.path.join("tests", "fixtures", "upt_mini")  # the UPT-layout fixture tree, relative to this script
+# the metrics phase: calc_metrics over the Full snapshot; a GeneratorFull forward launches up2 14 times and
+# down2 once (the serving path's counts), and calc_metric draws the generated source anew for each metric
+METRICS_NETWORK = ["fid50k_full", "kid50k_full", "pr50k3_full", "is50k"]
+METRICS_SYNTHETIC, METRICS_BATCH, PPL_SYNTHETIC, PPL_SAMPLES = 64, 32, 16, 64
+FORWARD_UP2, FORWARD_DOWN2 = 14, 1
+# card vs CPU limits of the detectors: the JAX package's oracle tests' (max abs / max |ref|; LPIPS rtol)
+INCEPTION_REL, VGG16_REL, LPIPS_RTOL, FID_RTOL = 2e-4, 3e-4, 1e-4, 1e-3
+PR_PROTOCOL = (200000, 50000)  # pr50k3_full's real and generated feature counts
 
 
 def card_tag():
@@ -1594,6 +1615,269 @@ def train_card_vs_cpu(torch, tag, label="noaug", ada=None):
           f"{stats[1]['Loss/r1_penalty']:.6g} CPU {stats[0]['Loss/r1_penalty']:.6g} [{tag}]", flush=True)
 
 
+def random_detectors(torch, tmp):
+    """Detector files with random weights under torchvision's names, drawn
+    from a seeded generator: an InceptionV3 with He-normal convs and
+    randomized BN statistics (folded at load), and a VGG16 with He-normal
+    weights and LPIPS heads.  He scaling keeps the 2048-d features varying
+    between images, so an FID of them is not rounding noise.  Returns the two
+    paths."""
+    from pasta_gan_tpu_torch.metrics import vgg16 as tvgg
+    from pasta_gan_tpu_torch.metrics.inception import BasicConv2d, InceptionV3Features
+
+    g = torch.Generator().manual_seed(0)
+
+    def he(shape):
+        fan_in = math.prod(shape[1:])
+        return torch.randn(shape, generator=g) * math.sqrt(2.0 / fan_in)
+
+    inc = {}
+    for name, m in InceptionV3Features(device="cpu").named_modules():
+        if isinstance(m, BasicConv2d):
+            c = m.weight.shape[0]
+            inc[f"{name}.conv.weight"] = he(m.weight.shape)
+            inc[f"{name}.bn.weight"] = torch.rand(c, generator=g) + 0.5
+            inc[f"{name}.bn.bias"] = torch.randn(c, generator=g) * 0.1
+            inc[f"{name}.bn.running_mean"] = torch.randn(c, generator=g) * 0.1
+            inc[f"{name}.bn.running_var"] = torch.rand(c, generator=g) + 0.5
+    vgg, c_in = {}, 3
+    for i, c in zip(tvgg._CONV_IDX, [c for c in tvgg._PLAN if c != "M"]):
+        vgg[f"features.{i}.weight"], vgg[f"features.{i}.bias"] = he((c, c_in, 3, 3)), torch.randn(c, generator=g) * 0.01
+        c_in = c
+    for j, shape in ((0, (4096, 512 * 49)), (3, (4096, 4096))):
+        vgg[f"classifier.{j}.weight"], vgg[f"classifier.{j}.bias"] = he(shape), torch.randn(shape[0], generator=g) * 0.01
+    for k, c in enumerate((64, 128, 256, 512, 512)):
+        vgg[f"lin{k}.model.1.weight"] = torch.rand((1, c, 1, 1), generator=g)
+    paths = os.path.join(tmp, "inception.pt"), os.path.join(tmp, "vgg16.pt")
+    torch.save(inc, paths[0])
+    torch.save(vgg, paths[1])
+    return paths
+
+
+def graph_flops(torch, module, x):
+    """FLOPs of module(x) from its convolutions' and linear layers' shapes,
+    two per multiply-add, counted by forward hooks that are removed again."""
+    from pasta_gan_tpu_torch.metrics.inception import BasicConv2d
+
+    total = [0]
+
+    def hook(m, inputs, out):
+        total[0] += 2 * out.numel() * (m.weight[0].numel() if m.weight.dim() == 4 else m.weight.shape[1])
+
+    hooks = [m.register_forward_hook(hook) for m in module.modules()
+             if isinstance(m, (BasicConv2d, torch.nn.Conv2d, torch.nn.Linear))]
+    try:
+        module(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return total[0]
+
+
+def check_launches(path, counts, expected):
+    """The path launched exactly its kernels, each exactly `expected` times."""
+    ran = {name for name, n in counts.items() if n > 0}
+    assert ran == PATH_KERNELS[path], f"{path} launched {sorted(ran)}, expected {sorted(PATH_KERNELS[path])}"
+    assert all(counts[k] == expected.get(k, 0) for k in counts), f"{path} launched {counts}, expected {expected}"
+
+
+def run_calc_metrics(torch, ck, tag, path, argv, metrics, run_dir=None):
+    """One `cli.calc_metrics.main` run with the launch counts set to 0 just
+    before it and read just after: every value finite, one result a metric,
+    each appended to `metric-<name>.jsonl` under `run_dir` with the printed
+    keys.  Returns (results, launches)."""
+    from pasta_gan_tpu_torch.cli import calc_metrics as cm
+
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = cm.main(argv + ["--metrics", ",".join(metrics)] + (["--run_dir", run_dir] if run_dir else []))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ck.launch_counts()
+    assert [r["metric"] for r in results] == metrics, [r["metric"] for r in results]
+    for r in results:
+        assert r["results"] and all(math.isfinite(v) for v in r["results"].values()), r
+        if run_dir:
+            with open(os.path.join(run_dir, f"metric-{r['metric']}.jsonl")) as f:
+                row = json.loads(f.read().splitlines()[-1])
+            assert sorted(row) == sorted(["results", "metric", "total_time", "extractor", "snapshot_pkl", "timestamp"])
+    vals = "; ".join(f"{k} {v:.6g}" for r in results for k, v in r["results"].items())
+    print(f"calc_metrics ({path}): {vals}; extractor {results[0]['extractor']}; {secs:.2f} s (first call, includes "
+          f"loading); launches {launches} [{tag}]", flush=True)
+    return results, launches
+
+
+def metrics_phase(torch, ck, tag, tmp):
+    """The evaluation path: `cli.calc_metrics` over the Full snapshot of the
+    serving phase with random-weight detectors (`metrics_network`: FID, KID,
+    PR and IS over `--synthetic` pairs; `metrics_folder`: FID of
+    `serving_real`'s PNGs against the fixture's images, no kernel;
+    `metrics_ppl`: ppl2_wend with the LPIPS distance), each launching
+    exactly its kernels the number of times its batches give; InceptionV3,
+    VGG16 and LPIPS on the card against the CPU, and FID from the card's
+    features against FID from the CPU's; the detectors' rates with their
+    bounds, the network source's rates, the host formulas' times on this
+    machine's CPU and a projected fid50k_full wall time.  Returns the three
+    paths' launch counts."""
+    import numpy as np
+
+    from pasta_gan_tpu_torch.cli import calc_metrics as cm
+    from pasta_gan_tpu_torch.data import image_io
+    from pasta_gan_tpu_torch.metrics import FeatureStats, formulas, lpips_distance
+    from pasta_gan_tpu_torch.metrics import vgg16 as tvgg
+    from pasta_gan_tpu_torch.metrics.inception import InceptionV3Features
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    inc_path, vgg_path = random_detectors(torch, tmp)
+    snap = os.path.join(tmp, "snapshot.pt")
+    run_dir = os.path.join(tmp, "metric_runs")
+    os.makedirs(run_dir)
+    launches = {}
+
+    # ---- the three paths through the CLI
+    n_batches = -(-METRICS_SYNTHETIC // METRICS_BATCH) * len(METRICS_NETWORK)
+    net_res, launches["metrics_network"] = run_calc_metrics(
+        torch, ck, tag, "metrics_network", ["--network", snap, "--synthetic", str(METRICS_SYNTHETIC), "--batch",
+                                            str(METRICS_BATCH), "--detector", inc_path], METRICS_NETWORK, run_dir)
+    assert all(r["extractor"] == "inception-torch-v1" for r in net_res)
+    check_launches("metrics_network", launches["metrics_network"], {
+        "norm_warp": n_batches, "composite": n_batches, "up2": FORWARD_UP2 * n_batches,
+        "down2": FORWARD_DOWN2 * n_batches})
+    gen_dir = os.path.join(tmp, "tryon_real")  # serving_real's 16 PNGs, 256x192
+    real_dir = os.path.join(fixture_root(), "UPT_subset1_256_192", "image")
+    _, launches["metrics_folder"] = run_calc_metrics(
+        torch, ck, tag, "metrics_folder", ["--gen_dir", gen_dir, "--real_dir", real_dir, "--resolution", "256",
+                                           "--detector", inc_path], ["fid50k_full"], run_dir)
+    check_launches("metrics_folder", launches["metrics_folder"], {})
+    ppl_batches = -(-PPL_SAMPLES // METRICS_BATCH)
+    ppl_res, launches["metrics_ppl"] = run_calc_metrics(
+        torch, ck, tag, "metrics_ppl", ["--network", snap, "--synthetic", str(PPL_SYNTHETIC), "--batch",
+                                        str(METRICS_BATCH), "--ppl_samples", str(PPL_SAMPLES), "--ppl_detector",
+                                        vgg_path], ["ppl2_wend"])
+    assert ppl_res[0]["results"]["ppl2_wend"] > 0
+    # each batch routes twice (garments i and i + 1), embeds twice and synthesizes twice
+    check_launches("metrics_ppl", launches["metrics_ppl"], {
+        "norm_warp": 2 * ppl_batches, "composite": 2 * ppl_batches, "up2": FORWARD_UP2 * 2 * ppl_batches,
+        "down2": FORWARD_DOWN2 * 2 * ppl_batches})
+
+    # ---- the detectors on the card against the CPU, fp32, TF32 off
+    names = sorted(os.listdir(real_dir))[:8]
+    reals = np.stack([image_io.read_rgb(os.path.join(real_dir, n)) for n in names])  # 8 images, 256x192
+    fakes = np.stack([image_io.read_rgb(os.path.join(gen_dir, n)) for n in sorted(os.listdir(gen_dir))[:8]])
+    inc = {d: InceptionV3Features.from_file(inc_path, device=d) for d in ("cuda", "cpu")}
+    feats = {d: [inc[d](x).cpu().numpy() for x in (reals, fakes)] for d in inc}
+    inc_err = float(np.abs(feats["cuda"][0] - feats["cpu"][0]).max() / np.abs(feats["cpu"][0]).max())
+    fid, host = {}, {}  # host: ms of the formulas on this machine's CPU
+    for d, (fr, fg) in feats.items():
+        stats = []
+        for f in (fr, fg):
+            st = FeatureStats(capture_mean_cov=True)
+            st.append(f)
+            stats.append(st.get_mean_cov())
+        t0 = time.perf_counter()
+        fid[d] = formulas.fid_from_stats(*stats[0], *stats[1])
+        host["fid_from_stats (2048-d)"] = (time.perf_counter() - t0) * 1e3
+    fid_err = abs(fid["cuda"] - fid["cpu"]) / abs(fid["cpu"])
+    vgg_sd = tvgg.load_state_dict_file(vgg_path)
+    vgg = {d: tvgg.VGG16Features.from_state_dict(vgg_sd, device=d) for d in ("cuda", "cpu")}
+    v = {d: vgg[d](reals).cpu().numpy() for d in vgg}
+    vgg_err = float(np.abs(v["cuda"] - v["cpu"]).max() / np.abs(v["cpu"]).max())
+    a, b = reals[:4].astype(np.float32), reals[4:8].astype(np.float32)
+    lp = {d: lpips_distance(vgg_sd, device=d)(torch.from_numpy(a).to(d), torch.from_numpy(b).to(d)).cpu().numpy()
+          for d in ("cuda", "cpu")}
+    lp_err = float(np.abs(lp["cuda"] - lp["cpu"]).max() / np.abs(lp["cpu"]).max())
+    print(f"metrics card vs CPU (fp32, TF32 off): InceptionV3 features of 8 images at 256x192 max abs / max |ref| "
+          f"{inc_err:.3g} (limit {INCEPTION_REL}); VGG16 fc7 {vgg_err:.3g} (limit {VGG16_REL}); LPIPS of 4 pairs "
+          f"relative {lp_err:.3g} (limit {LPIPS_RTOL}); FID of 8 fixture images against 8 served ones card "
+          f"{fid['cuda']:.6g} CPU {fid['cpu']:.6g}, relative {fid_err:.3g} (limit {FID_RTOL}) [{tag}]", flush=True)
+    assert inc_err <= INCEPTION_REL and vgg_err <= VGG16_REL and fid_err <= FID_RTOL
+    np.testing.assert_allclose(lp["cuda"], lp["cpu"], rtol=LPIPS_RTOL)
+    del inc["cpu"], vgg["cpu"]
+
+    # ---- rates on the card, each beside its bound
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x_inc = torch.randint(0, 256, (64, 256, 192, 3), generator=g, device="cuda", dtype=torch.uint8)
+    x_vgg = torch.randint(0, 256, (64, 224, 224, 3), generator=g, device="cuda", dtype=torch.uint8)
+    pair = [torch.rand((32, 256, 256, 3), generator=g, device="cuda") * 255 for _ in range(2)]
+    lpips_model = tvgg.LPIPSFeatures.from_state_dict(vgg_sd, device="cuda")
+    dist = lpips_distance(vgg_sd, device="cuda")
+    rates = {}
+    for name, fn, n, flops in (
+            ("InceptionV3 (2048-d, batch 64, from 256x192 uint8)", lambda: inc["cuda"](x_inc), 64,
+             graph_flops(torch, inc["cuda"], x_inc[:1])),
+            ("VGG16 fc7 (4096-d, batch 64, 224x224)", lambda: vgg["cuda"](x_vgg), 64,
+             graph_flops(torch, vgg["cuda"], x_vgg[:1])),
+            ("LPIPS (32 pairs, 256x256)", lambda: dist(*pair), 32,
+             2 * graph_flops(torch, lpips_model, pair[0][:1] / 127.5 - 1.0))):
+        ms, _ = host_ms(torch, fn, 10)
+        bound_ms = n * flops / PEAK_FP32_FLOPS * 1e3
+        rates[name.split()[0]] = n / ms * 1e3
+        print(f"metrics rate {name}: {ms:.2f} ms, {n / ms * 1e3:.1f} a second (median of 10); {flops / 1e9:.2f} "
+              f"GFLOP each, bound {bound_ms:.2f} ms ({n / bound_ms * 1e3:.0f} a second at {PEAK_FP32_FLOPS / 1e12:.0f} "
+              f"TFLOP/s fp32), {bound_ms / ms:.3f} of it [{tag}]", flush=True)
+    del x_inc, x_vgg, pair, lpips_model, dist, vgg
+    sources = {}
+    for label, (root, n_syn) in (("--synthetic", (None, METRICS_SYNTHETIC)), ("--dataroot", (fixture_root(), 0))):
+        src = cm._network_source(snap, root, n_syn, METRICS_BATCH, device="cuda")
+        passes = []
+        for _ in range(2):  # the first pass draws the synthetic samples and warms the card up
+            t0 = time.perf_counter()
+            n = sum(int(batch.shape[0]) for batch in src())
+            torch.cuda.synchronize()
+            passes.append(time.perf_counter() - t0)
+        sources[label] = n / passes[1]
+        device_ms, n_ops, top = device_profile(torch, lambda: next(src()), iters=2)  # the first batch of a pass
+        b = min(n, METRICS_BATCH)
+        print(f"metrics network source ({label}, batch {b}, fp32 forward, {n} pairs): {passes[1] * 1e3:.1f} ms a "
+              f"pass, {sources[label]:.1f} images/s (first pass {passes[0]:.2f} s"
+              f"{', host loading in the pass' if root else ''}); one batch's device time "
+              f"{'not measured' if device_ms is None else f'{device_ms:.1f} ms'}, {n_ops:.0f} device ops [{tag}]",
+              flush=True)
+        for op, op_ms, cnt in top:
+            print(f"    {op_ms:9.3f} ms {cnt:7.1f}x  {op[:100]}", flush=True)
+        if root is None:
+            # cuDNN's heuristics pick FFT convolutions for this fp32 forward; what would autotuning pick?
+            torch.backends.cudnn.benchmark = True
+            try:
+                for _ in range(2):  # the first pass tunes
+                    t0 = time.perf_counter()
+                    sum(int(batch.shape[0]) for batch in src())
+                    torch.cuda.synchronize()
+                tuned = time.perf_counter() - t0
+            finally:
+                torch.backends.cudnn.benchmark = False
+            print(f"metrics network source ({label}) with cudnn.benchmark on (TF32 still off): {tuned * 1e3:.1f} ms a "
+                  f"pass, {n / tuned:.1f} images/s (measured only; the CLI keeps cuDNN's defaults) [{tag}]", flush=True)
+
+    # ---- host formulas on this machine's CPU
+    rng = np.random.default_rng(0)
+    n = METRICS_SYNTHETIC
+    f_r, f_g = rng.standard_normal((n, 2048)).astype(np.float32), rng.standard_normal((n, 2048)).astype(np.float32)
+    t0 = time.perf_counter()
+    formulas.kid_from_features(f_r, f_g, rng=np.random.default_rng(0))
+    host[f"kid_from_features (N {n})"] = (time.perf_counter() - t0) * 1e3
+    for n_pr in (n, 2048):
+        f_r, f_g = (rng.standard_normal((n_pr, 4096)).astype(np.float32) for _ in range(2))
+        t0 = time.perf_counter()
+        formulas.precision_recall_from_features(f_r, f_g)
+        host[f"precision_recall_from_features (N {n_pr}, 4096-d)"] = pr_ms = (time.perf_counter() - t0) * 1e3
+    R, G = PR_PROTOCOL  # cost ~ R^2 + G^2 + 2RG distances (manifold x manifold and probes x manifold, both ways)
+    pr_protocol_s = pr_ms / 1e3 * (R * R + G * G + 2 * R * G) / (4 * 2048 * 2048)
+    print("metrics host ms on this machine's CPU: " + ", ".join(f"{k} {v:.1f}" for k, v in host.items())
+          + f"; precision_recall at {G} generated and {R} real, extrapolated as N^2 from N 2048: "
+          f"{pr_protocol_s / 60:.1f} min [{tag}]", flush=True)
+    for label, gen_rate in sources.items():
+        total = 50000 / gen_rate + 50000 / rates["InceptionV3"] + host["fid_from_stats (2048-d)"] / 1e3
+        print(f"metrics projected fid50k_full wall time over {label} pairs: 50k at {gen_rate:.1f} images/s + 50k "
+              f"through InceptionV3 at {rates['InceptionV3']:.0f}/s + the formula: {total / 60:.1f} min [{tag}]",
+              flush=True)
+    print(f"metrics phase: peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated, "
+          f"{time.perf_counter() - t_phase:.1f} s [{tag}]", flush=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     import torch
 
@@ -1629,6 +1913,7 @@ def main():
         launches["training"] = train_phase(torch, ck, tag, tmp)
         launches["training_ada"] = train_ada_phase(torch, ck, tag, tmp)
         launches.update(real_data_phase(torch, ck, tag, tmp))
+        launches.update(metrics_phase(torch, ck, tag, tmp))
     train_card_vs_cpu(torch, tag)
     train_card_vs_cpu(torch, tag, "ADA debug percentile", ada="debug")
     train_card_vs_cpu(torch, tag, "ADA random draws", ada="random")

@@ -8,6 +8,9 @@ as Pillow on libjpeg-turbo, bit for bit:
 * `read_rgb(p)`    == `np.asarray(PIL.Image.open(p).convert("RGB"))`
 * `read_l_resized(p, (w, h))` == `np.asarray(PIL.Image.open(p).convert("L").resize((w, h)))`
 
+and, for `cli/calc_metrics.py`'s folder source, `resize(img, (w, h), "lanczos")`
+== `np.asarray(PIL.Image.fromarray(img).resize((w, h), PIL.Image.LANCZOS))`.
+
 JPEG (baseline and extended sequential Huffman, 8-bit, grey or YCbCr at
 4:4:4, 4:2:2 or 4:2:0, restart intervals) is decoded by the plain-C library
 `csrc/host_decode.c`, which follows libjpeg's integer IDCT, fancy upsampling
@@ -31,7 +34,9 @@ interpreter lock for the call: the loader's threads decode in parallel.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import math
 import os
 import shutil
 import struct
@@ -267,10 +272,29 @@ def _bicubic(x: float) -> float:
     return 0.0
 
 
-def _resample_coeffs(in_size: int, out_size: int):
-    """Resample.c `precompute_coeffs` + `normalize_coeffs_8bpc` for the
-    bicubic filter over the whole input: (xmin [out], weights [out, k] int64)."""
-    support = 2.0
+def _sinc(x: float) -> float:
+    if x == 0.0:
+        return 1.0
+    x = x * math.pi
+    return math.sin(x) / x
+
+
+def _lanczos(x: float) -> float:
+    """Resample.c's truncated sinc, `sinc(x) * sinc(x / 3)` on [-3, 3)."""
+    if -3.0 <= x < 3.0:
+        return _sinc(x) * _sinc(x / 3)
+    return 0.0
+
+
+# filter name -> (filter, support), as Resample.c's `filter` structs
+FILTERS = {"bicubic": (_bicubic, 2.0), "lanczos": (_lanczos, 3.0)}
+
+
+@functools.lru_cache(maxsize=32)
+def _resample_coeffs(in_size: int, out_size: int, filt, support: float):
+    """Resample.c `precompute_coeffs` + `normalize_coeffs_8bpc` for `filt` of
+    `support` over the whole input: (xmin [out], weights [out, k] int64),
+    cached (a folder's images share their sizes; callers do not write them)."""
     scale = filterscale = in_size / out_size
     if filterscale < 1.0:
         filterscale = 1.0
@@ -283,7 +307,7 @@ def _resample_coeffs(in_size: int, out_size: int):
         ss = 1.0 / filterscale
         xmin = max(int(center - support + 0.5), 0)
         xmax = min(int(center + support + 0.5), in_size) - xmin
-        k = [_bicubic((x + xmin - center + 0.5) * ss) for x in range(xmax)]
+        k = [filt((x + xmin - center + 0.5) * ss) for x in range(xmax)]
         ww = 0.0
         for w in k:
             ww += w
@@ -294,27 +318,36 @@ def _resample_coeffs(in_size: int, out_size: int):
     return bounds, kk
 
 
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    """One 8-bit bicubic pass along `axis` (1: horizontal, 0: vertical)."""
-    bounds, kk = _resample_coeffs(img.shape[axis], out_size)
-    src = img.astype(np.int64) if axis == 0 else img.astype(np.int64).T
+def _resample_axis(img: np.ndarray, out_size: int, axis: int, filter: str) -> np.ndarray:
+    """One 8-bit pass along `axis` (1: horizontal, 0: vertical) of an [H, W]
+    or [H, W, C] image, each channel with the same weights."""
+    bounds, kk = _resample_coeffs(img.shape[axis], out_size, *FILTERS[filter])
+    src = np.moveaxis(img, axis, 0).astype(np.int32)  # Resample.c accumulates in 32-bit ints
     idx = np.minimum(bounds[:, None] + np.arange(kk.shape[1]), img.shape[axis] - 1)  # weights past xmax are 0
-    acc = (src[idx] * kk[:, :, None]).sum(axis=1) + (1 << (_PRECISION_BITS - 1))
+    w = kk.astype(np.int32).reshape(kk.shape + (1,) * (src.ndim - 1))
+    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1), np.int32)
+    for j in range(kk.shape[1]):
+        acc += src[idx[:, j]] * w[:, j]
     out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
-    return out if axis == 0 else np.ascontiguousarray(out.T)
+    return np.ascontiguousarray(np.moveaxis(out, 0, axis))
 
 
-def resize_l(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
-    """`Image.resize(size)` of an L image [H, W] uint8 (Pillow's default
-    BICUBIC): the horizontal pass only when the width changes, the vertical
+def resize(img: np.ndarray, size: Tuple[int, int], filter: str = "bicubic") -> np.ndarray:
+    """`Image.resize(size, filter)` of an L [H, W] or RGB [H, W, 3] uint8
+    image: the horizontal pass only when the width changes, the vertical
     only when the height does, a copy when neither."""
     w, h = size
     out = img
     if w != img.shape[1]:
-        out = _resample_axis(out, w, 1)
+        out = _resample_axis(out, w, 1, filter)
     if h != img.shape[0]:
-        out = _resample_axis(out, h, 0)
+        out = _resample_axis(out, h, 0, filter)
     return out.copy() if out is img else out
+
+
+def resize_l(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """`Image.resize(size)` of an L image [H, W] uint8 (Pillow's default BICUBIC)."""
+    return resize(img, size, "bicubic")
 
 
 def read_l_resized(path: str, size: Tuple[int, int]) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""JAX variables -> this package's state_dicts: GeneratorFull, GeneratorV18, Discriminator, VGG19.
+"""JAX variables -> this package's state_dicts: GeneratorFull, GeneratorV18, Discriminator, VGG19,
+and the metrics' SimpleConvFeatures.
 
 The reverse of `pasta_gan_tpu/io/torch_import.py:_ref_key`, kept here so the
 port never imports the JAX package.  `variables` is the JAX package's nested
@@ -13,6 +14,7 @@ Layout translations:
   const         [H, W, C]       -> [C, H, W]
   D b4.fc       [out, H*W*C]    -> [out, C*H*W] (JAX flattens NHWC, the port NCHW)
   VGG19 conv{i} -> torchvision's features.{layer}
+  SimpleConvFeatures kernels[i] HWIO -> kernel{i} OIHW; proj [256, dim] (copy)
 """
 
 from __future__ import annotations
@@ -140,4 +142,19 @@ def vgg19_state_dict_from_jax(variables, expected: Optional[Mapping[str, torch.T
         if m is None or int(m.group(1)) >= len(VGG19_CONV_LAYERS):
             raise KeyError(f"unexpected VGG19 leaf {key}")
         out[f"features.{VGG19_CONV_LAYERS[int(m.group(1))]}.{m.group(2)}"] = v
+    return _checked(out, expected)
+
+
+def simpleconv_state_dict_from_jax(kernels, proj, expected: Optional[Mapping[str, torch.Tensor]] = None):
+    """The JAX `metrics/extractors.py:SimpleConvFeatures`' `kernels` (four
+    HWIO arrays) and `proj` [256, dim] -> the port's SimpleConvFeatures
+    state_dict (`kernel{i}` OIHW, `proj`).  Raises on a kernel that is not
+    4-D and, with `expected`, on any missing, extra or mis-shaped key."""
+    out = {}
+    for i, k in enumerate(kernels):
+        k = np.asarray(k, dtype=np.float32)
+        if k.ndim != 4:
+            raise ValueError(f"SimpleConvFeatures kernel {i} has shape {k.shape}, expected HWIO")
+        out[f"kernel{i}"] = torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+    out["proj"] = torch.from_numpy(np.array(proj, dtype=np.float32))
     return _checked(out, expected)

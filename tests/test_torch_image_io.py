@@ -12,7 +12,8 @@ library `csrc/host_decode.c`) against PIL, bit for bit, on the CPU.
   mode "1"), each with rows in all five filter types, written by this test's
   own encoder so that the filter of each row is known.
 * `convert("RGB")`, `convert("L")` and the default (bicubic) `resize` of L
-  images to larger, smaller and equal sizes.
+  images to larger, smaller and equal sizes; the LANCZOS `resize` of RGB
+  images (`calc_metrics --resolution`), up and down, square and not.
 * What the decoder refuses raises ValueError naming the file: progressive,
   lossless, arithmetic-coded, 12-bit and CMYK JPEG; 16-bit, interlaced and
   2-bit grey PNG.
@@ -201,6 +202,39 @@ def test_resize_random_sizes_match_pil(h, w, oh, ow, seed):
     img = np.random.default_rng(seed).integers(0, 256, (h, w)).astype(np.uint8)
     np.testing.assert_array_equal(image_io.resize_l(img, (ow, oh)),
                                   np.asarray(PIL.Image.fromarray(img).resize((ow, oh))))
+
+
+@pytest.mark.parametrize("hw,size", [((256, 192), (256, 256)), ((256, 192), (128, 96)), ((64, 64), (299, 299)),
+                                     ((300, 200), (224, 224)), ((37, 53), (53, 37)), ((40, 40), (40, 17)),
+                                     ((9, 31), (9, 31))],
+                         ids=["pad_width", "half", "square_up", "down", "transpose", "height_only", "same"])
+def test_lanczos_rgb_resize_matches_pil(tmp_path, hw, size):
+    """`calc_metrics --resolution`'s resize: RGB, up and down, square and not,
+    through the same coefficient code as the bicubic L resize."""
+    img = _texture(np.random.default_rng(sum(hw)), *hw)
+    path = str(tmp_path / "a.png")
+    PIL.Image.fromarray(img).save(path)
+    ref = np.asarray(PIL.Image.open(path).convert("RGB").resize(size, PIL.Image.LANCZOS))
+    got = image_io.resize(image_io.read_rgb(path), size, "lanczos")
+    assert got.shape == ref.shape and got.dtype == np.uint8
+    np.testing.assert_array_equal(got, ref)
+
+
+@settings(max_examples=30, deadline=None)
+@given(h=st.integers(1, 60), w=st.integers(1, 60), oh=st.integers(1, 90), ow=st.integers(1, 90),
+       seed=st.integers(0, 2**16))
+def test_lanczos_random_sizes_match_pil(h, w, oh, ow, seed):
+    img = np.random.default_rng(seed).integers(0, 256, (h, w, 3)).astype(np.uint8)
+    np.testing.assert_array_equal(image_io.resize(img, (ow, oh), "lanczos"),
+                                  np.asarray(PIL.Image.fromarray(img).resize((ow, oh), PIL.Image.LANCZOS)))
+
+
+def test_resize_filters_share_one_coefficient_path():
+    for name, (filt, support) in image_io.FILTERS.items():
+        bounds, kk = image_io._resample_coeffs(10, 4, filt, support)
+        assert kk.shape == (4, int(np.ceil(support * 2.5)) * 2 + 1), name
+        # every row's fixed-point weights sum to one within the rounding of each weight
+        assert np.all(np.abs(kk.sum(1) - (1 << image_io._PRECISION_BITS)) <= kk.shape[1]), name
 
 
 # ------------------------------------------------------------------ refusals

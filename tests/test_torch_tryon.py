@@ -35,10 +35,12 @@ from pasta_gan_tpu.data import warp as jw
 from pasta_gan_tpu.models import GeneratorFull as JaxGeneratorFull
 from pasta_gan_tpu.models import cat_feats_dict as jax_cat_feats_dict
 from pasta_gan_tpu_torch.cli import test as cli
+from pasta_gan_tpu_torch.cli import calc_metrics as cli_calc_metrics
 from pasta_gan_tpu_torch.cli import train as cli_train
 from pasta_gan_tpu_torch.data import dataset as tds
 from pasta_gan_tpu_torch.io.checkpoints import save_snapshot
 from pasta_gan_tpu_torch.io.from_jax import state_dict_from_jax
+from pasta_gan_tpu_torch.metrics import SimpleConvFeatures
 from pasta_gan_tpu_torch.models import GeneratorFull, cat_feats_dict
 
 from test_torch_generator import _jax_variables
@@ -213,7 +215,10 @@ def test_port_imports_no_jax_cv2_pil_or_jax_package():
     later_slices = {f"pasta_gan_tpu_torch/{m}.py" for m in (
         "ops/cuda_kernels", "ops/upfirdn_kernels", "nn/discriminator", "runtime/config", "train/losses",
         "train/vgg", "train/state", "train/step", "train/loop", "cli/train", "models/generator_v18",
-        "train/augment", "ops/shear_warp", "models/generator_512", "cli/test_512", "utils/__init__")}
+        "train/augment", "ops/shear_warp", "models/generator_512", "cli/test_512", "utils/__init__",
+        "metrics/__init__", "metrics/formulas", "metrics/feature_stats", "metrics/detectors_manifest",
+        "metrics/inception", "metrics/vgg16", "metrics/extractors", "metrics/ppl", "metrics/metric_main",
+        "cli/calc_metrics")}
     assert later_slices <= rel, sorted(later_slices - rel)
     bad = [(os.path.relpath(f, REPO), mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -241,3 +246,7 @@ def test_entry_points_refuse_a_missing_card(monkeypatch, tmp_path):
         tds.prepare_train_batch(person)
     with pytest.raises(RuntimeError, match="cuda"):
         cli_train.main(["--outdir", str(tmp_path / "runs"), "--synthetic", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        cli_calc_metrics.main(["--network", str(tmp_path / "snap.pt"), "--synthetic", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        SimpleConvFeatures()
