@@ -4,7 +4,7 @@
   python3 chip_smoke.py    # needs one NVIDIA GPU; the last line is the JSON verdict
 
 Phases, each fatal on failure:
-1. Build the five kernels from `pasta_gan_tpu_torch/csrc/` with nvcc (one
+1. Build the six kernels from `pasta_gan_tpu_torch/csrc/` with nvcc (one
    process per source, all started together).
 2. Kernel phase.  The routing kernels at the try-on paths' batch-16 shapes
    (norm_warp and composite on the Full route; norm_warp at 8 channels,
@@ -100,6 +100,22 @@ Phases, each fatal on failure:
    CPU's; the detectors' rates beside their FLOP bounds, the network
    source's images/s (synthetic and `--dataroot` pairs), the host formulas'
    times, a projected fid50k_full wall time and peak memory.
+11. int8 serving phase (`int8_serving`, after the 512 serving phase, on
+   the Full, V18 and 512 snapshots): `cli.test --quant int8_static
+   --calib_batches 2` and `--quant int8` (Full, 16 synthetic pairs),
+   `--generator v18 --quant int8_static`, and `cli.test_512 --quant
+   int8_static` (fullbody, the fixture's 8 pairs, fused route); the
+   int8_conv launches of one batch-16 Full int8_static forward and one
+   batch-8 Generator512 forward (bf16) counted by class, every class held to
+   its plain version at max abs error 0 and timed through its wrapper and
+   its C entry point beside its bound (int8 operations at 1979 TOP/s, or
+   bytes), the plain version, im2col + `torch._int_mm` (`library_ms`) and
+   the bf16 cuDNN conv of the same geometry; int8 and int8_static against
+   the fp32 forward (batch 16); end-to-end timing and profiles (Full in both
+   modes at batch 16 and 1, 512 int8_static at batch 8 and 1) and peak
+   memory; the card against the CPU (int8_static, full width, batch 2, fp32,
+   the card's calibrated scales) within twice the forward's own move under
+   a 1e-6 relative input change (measured on the card).
 Each path's launch counts are set to 0 just before it runs and read just
 after; each path must launch exactly its kernels (`PATH_KERNELS`).  The
 training phase also counts down2's launches by (pad, dtype, input shape) in
@@ -133,7 +149,9 @@ REPLACES = {"norm_warp": "pasta_gan_tpu/ops/pallas_warp.py:172",
             "composite": "pasta_gan_tpu/ops/pallas_warp.py:480",
             "denorm_warp": "pasta_gan_tpu/ops/pallas_warp.py:78",
             "up2": "pasta_gan_tpu/ops/pallas_upfirdn.py:60",
-            "down2": "pasta_gan_tpu/ops/pallas_upfirdn.py:134"}
+            "down2": "pasta_gan_tpu/ops/pallas_upfirdn.py:134",
+            # not a Pallas kernel: XLA's s8 x s8 -> s32 conv_general_dilated in int8_conv_like
+            "int8_conv": "pasta_gan_tpu/ops/quant.py:131"}
 # bf16 vs fp32 forward, ||bf16 - fp32|| / ||fp32|| of the finetune image.  bf16
 # keeps 8 mantissa bits (2^-8 = 0.4 % per rounding); with this script's
 # snapshot init at channel_base 512 on the CPU a correct bf16 path gives 0.031,
@@ -142,10 +160,15 @@ BF16_REL_L2 = 0.1
 # the kernels each driven path launches (and no other)
 FUSED = {"norm_warp", "composite", "up2", "down2"}
 SEPARATE = {"norm_warp", "denorm_warp", "up2", "down2"}
+# int8 serving: the int8 conv, the float up-convs below 32 rows and the skips' upsample (up2); the down-convs
+# run int8 after a plain FIR (no down2)
+INT8 = {"norm_warp", "composite", "up2", "int8_conv"}
 PATH_KERNELS = {"serving_full": FUSED, "serving_v18_fused": FUSED, "serving_v18_separate": SEPARATE,
                 "serving_512_fused": FUSED, "serving_512_separate": SEPARATE, "training": FUSED,
                 "training_ada": FUSED, "serving_real": FUSED, "training_real": FUSED,
-                "metrics_network": FUSED, "metrics_folder": set(), "metrics_ppl": FUSED}
+                "metrics_network": FUSED, "metrics_folder": set(), "metrics_ppl": FUSED,
+                "serving_int8_static": INT8, "serving_int8": INT8, "serving_v18_int8_static": INT8,
+                "serving_512_int8_static": INT8}
 FIXTURE = os.path.join("tests", "fixtures", "upt_mini")  # the UPT-layout fixture tree, relative to this script
 # the metrics phase: calc_metrics over the Full snapshot; a GeneratorFull forward launches up2 14 times and
 # down2 once (the serving path's counts), and calc_metric draws the generated source anew for each metric
@@ -1088,6 +1111,308 @@ def serving_512_phase(torch, wk, ck, tag, tmp):
     return launches
 
 
+# ------------------------------------------------------------------ int8 serving
+
+INT8_PEAK_OPS = 1979e12  # H100 SXM int8 tensor-core operations a second (dense)
+# int8 vs fp32 forward, ||int8 - fp32|| / ||fp32|| of the finetune image: about twice the largest
+# int8-vs-fp32 distance of the JAX package's own forward in the CPU tests (0.112, Generator512 at
+# channel_base 512, channel_max 32, 64px; tests/test_torch_quant_generators.py); a wrong scale or a conv on
+# the wrong operands moves it above 1
+INT8_REL_L2 = 0.25
+# card vs CPU of the int8_static forward: the CPU tests' rule (tests/test_torch_quant_generators.py): within
+# INT8_SENSITIVITY_FACTOR times the forward's own move when its inputs move by INT8_PERTURB relative (the
+# larger of two draws, on the card), since one ulp before a quantize can flip a rounding and the flips spread
+INT8_PERTURB, INT8_SENSITIVITY_FACTOR = 1e-6, 2.0
+
+
+def int8_classes(torch, fn):
+    """Run fn() once and count its int8_conv calls by class (kh, stride,
+    dilation, C, O, H, W, output dtype, scale kind, paddings, batch), through a
+    counting wrapper around `ops/quant.py:int8_conv` that is removed again
+    before returning."""
+    from collections import Counter
+
+    from pasta_gan_tpu_torch.ops import quant as tq
+
+    hist, conv = Counter(), tq.int8_conv
+
+    def counted(xq, wq, sx, sw, stride=1, padding_hw=((0, 0), (0, 0)), lhs_dilation=1, out_dtype=torch.bfloat16):
+        N, C, H, W = xq.shape
+        hist[(wq.shape[2], stride, lhs_dilation, C, wq.shape[0], H, W, str(out_dtype)[6:],
+              "scalar" if sx.numel() == 1 else "per_sample", tuple(map(tuple, padding_hw)), N)] += 1
+        return conv(xq, wq, sx, sw, stride, padding_hw, lhs_dilation, out_dtype)
+
+    tq.int8_conv = counted
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        tq.int8_conv = conv
+    return hist
+
+
+def int8_library(torch, xq, wq, sx, sw, stride, padding_hw, dil, out_dtype):
+    """The yardstick: im2col (int8, in memory) + `torch._int_mm` (s8 x s8 ->
+    s32) + the same epilogue; never called by the port.  None where
+    `_int_mm` does not take the shape (K or O not a multiple of 8)."""
+    F = torch.nn.functional
+    N, C, H, W = xq.shape
+    O, _, kh, kw = wq.shape
+    (pt, pb), (pl, pr) = padding_hw
+    K = C * kh * kw
+    if O % 8 or N * H * W <= 16:
+        return None
+    x = xq
+    if dil > 1:
+        xd = torch.zeros(N, C, (H - 1) * dil + 1, (W - 1) * dil + 1, dtype=torch.int8, device=xq.device)
+        xd[:, :, ::dil, ::dil] = x
+        x = xd
+    x = F.pad(x, (pl, pr, pt, pb))
+    cols = x.unfold(2, kh, stride).unfold(3, kw, stride)  # [N, C, Ho, Wo, kh, kw]
+    Ho, Wo = cols.shape[2:4]
+    a = cols.permute(0, 2, 3, 1, 4, 5).reshape(N * Ho * Wo, K)
+    b = wq.reshape(O, K)
+    if K % 8:
+        a, b = F.pad(a, (0, 8 - K % 8)), F.pad(b, (0, 8 - K % 8))
+    acc = torch._int_mm(a, b.t())
+    y = acc.view(N, Ho, Wo, O).permute(0, 3, 1, 2).float()
+    if out_dtype == torch.bfloat16:
+        y = y.to(torch.bfloat16).float()
+    return (y * (sx.float().reshape(-1, 1, 1, 1) * sw.float().reshape(1, -1, 1, 1))).to(out_dtype)
+
+
+def int8_case(torch, g, cls, tag, launches=None, iters=10):
+    """One int8_conv class on random int8 operands of its shape: the kernel
+    against its plain version on the card (max abs error 0), through its
+    wrapper and its C entry point alone (operands packed beforehand), the
+    plain version, the library yardstick (im2col + `_int_mm`, also held to
+    the plain version) and the bf16 cuDNN conv of the same geometry; the
+    bound: useful operations (2 x C x O x the taps that land on real input,
+    summed over the outputs) over 1979 TOP/s, or bytes (int8 input and
+    weight, the output, the scales) over 3.35 TB/s, the larger."""
+    from pasta_gan_tpu_torch.ops import cuda_kernels as ck
+    from pasta_gan_tpu_torch.ops import quant as tq
+
+    F = torch.nn.functional
+    kh, stride, dil, C, O, H, W, dt, scale, pads, N = cls
+    out_dtype = getattr(torch, dt)
+    (pt, pb), (pl, pr) = pads
+    xq = torch.randint(-127, 128, (N, C, H, W), generator=g, device="cuda", dtype=torch.int8)
+    wq = torch.randint(-127, 128, (O, C, kh, kh), generator=g, device="cuda", dtype=torch.int8)
+    sx = torch.rand((N, 1, 1, 1) if scale == "per_sample" else (), generator=g, device="cuda") * 0.05 + 1e-3
+    sw = torch.rand(O, generator=g, device="cuda") * 0.01 + 1e-4
+    args = (xq, wq, sx, sw, stride, pads, dil, out_dtype)
+    run = lambda: tq.int8_conv(*args)  # noqa: E731
+    plain = lambda: tq.int8_conv_reference(*args)  # noqa: E731
+    y, yp = run(), plain()
+    torch.cuda.synchronize()
+    assert y.shape == yp.shape and y.dtype == out_dtype, (cls, y.shape, yp.shape)
+    err = float((y.float() - yp.float()).abs().max())
+    assert err == 0, f"int8_conv {cls} differs from its plain version: max abs error {err}"
+    yl = int8_library(torch, *args)
+    lib_err = None if yl is None else float((yl.float() - yp.float()).abs().max())
+    # the C entry point alone, its operands laid out beforehand, into a preallocated output
+    ops = tq.kernel_operands(xq, wq, stride, pads, dil)
+    sxf = sx.float().reshape(-1).contiguous()
+    ye = torch.empty_like(y)
+    entry = lambda: tq.launch_kernel(ops, sxf, sw, ye)  # noqa: E731
+    entry()
+    torch.cuda.synchronize()
+    assert torch.equal(ye, y), f"int8_conv {cls} through its C entry point differs from its wrapper"
+    entry_ms, entry_median = cuda_time_ms(torch, entry, iters=iters)
+    ms, ms_median = cuda_time_ms(torch, run, iters=iters)
+    plain_ms = cuda_time_ms(torch, plain, iters=2, warmup=1)[0]
+    lib = cuda_time_ms(torch, lambda: int8_library(torch, *args), iters=iters)[0] if yl is not None else None
+    xb = torch.randn(N, C, H, W, generator=g, device="cuda").to(torch.bfloat16)
+    if dil > 1:  # input dilation 2 with padding 3 of a 6x6 kernel is a stride-2 transposed conv
+        wb = torch.randn(C, O, kh, kh, generator=g, device="cuda").to(torch.bfloat16)
+        bf16 = lambda: F.conv_transpose2d(xb, wb, stride=dil, padding=kh - 1 - pt)  # noqa: E731
+    else:
+        wb = torch.randn(O, C, kh, kh, generator=g, device="cuda").to(torch.bfloat16)
+        bf16 = lambda: F.conv2d(xb, wb, stride=stride, padding=(pt, pl))  # noqa: E731
+    assert tuple(bf16().shape) == tuple(y.shape), (cls, bf16().shape, y.shape)
+    bf16_ms = cuda_time_ms(torch, bf16, iters=iters)[0]
+    ones = torch.ones(N, 1, H, W, dtype=torch.int8, device="cuda")
+    taps = float(tq.int8_conv_reference(ones, torch.ones(1, 1, kh, kh, dtype=torch.int8, device="cuda"),
+                                        torch.ones((), device="cuda"), torch.ones(1, device="cuda"), stride, pads,
+                                        dil, torch.float32).double().sum())
+    ops = 2.0 * C * O * taps
+    nbytes_ = xq.numel() + wq.numel() + y.numel() * y.element_size() + 4 * (N + O)
+    res = dict(err=err, entry_ms=entry_ms, entry_median=entry_median, ms=ms, ms_median=ms_median, plain_ms=plain_ms,
+               library_ms=lib, bf16_ms=bf16_ms, ops=ops, bytes=nbytes_,
+               bound_ms=max(nbytes_ / PEAK_BYTES_PER_S, ops / INT8_PEAK_OPS) * 1e3,
+               bound_by="bytes" if nbytes_ / PEAK_BYTES_PER_S >= ops / INT8_PEAK_OPS else "operations")
+    n = "" if launches is None else f"{launches} per forward, "
+    lib_s = "null" if lib is None else f"{lib:.4f} (im2col + _int_mm, max |diff| vs plain {lib_err:.3g})"
+    print(f"kernel int8_conv({kh}x{kh}, stride {stride}, dilation {dil}, {C}->{O}, [{N},{C},{H},{W}] -> "
+          f"{list(y.shape)}, {dt}, {scale} scale): {n}max_abs_err={err:.3g} entry_ms={entry_ms:.4f} (median "
+          f"{entry_median:.4f}) wrapper_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={res['bound_ms']:.4f} "
+          f"({res['bound_by']}; {ops / entry_ms / 1e9:.1f} TOP/s) library_ms={lib_s} bf16 cuDNN conv "
+          f"{bf16_ms:.4f} [{tag}]", flush=True)
+    return res
+
+
+def int8_kernel_classes(torch, label, gen, w_avg, batch, tag):
+    """Count the int8_conv launches of one forward of `gen` (its quant mode
+    set) by class, hold every class to its plain version and time it
+    (`int8_case`); returns {class: (launches, result)}."""
+    from pasta_gan_tpu_torch.cli import test as cli
+
+    with torch.no_grad():
+        classes = int8_classes(torch, lambda: cli.tryon_forward(gen, w_avg, batch))
+    print(f"{label}: {sum(classes.values())} int8_conv launches in {len(classes)} classes [{tag}]", flush=True)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for cls, n in sorted(classes.items(), key=lambda kv: str(kv[0])):
+        out[cls] = (n, int8_case(torch, g, cls, tag, launches=n))
+        torch.cuda.empty_cache()
+    total = sum(n * r["entry_ms"] for n, r in out.values())
+    bound = sum(n * r["bound_ms"] for n, r in out.values())
+    bf16 = sum(n * r["bf16_ms"] for n, r in out.values())
+    lib = sum(n * r["library_ms"] for n, r in out.values() if r["library_ms"] is not None)
+    print(f"{label}: int8_conv {total:.3f} ms a forward through the C entry point (bound {bound:.3f} ms; the bf16 "
+          f"cuDNN convs of the same geometries {bf16:.3f} ms; im2col + _int_mm {lib:.3f} ms where it applies) "
+          f"[{tag}]", flush=True)
+    return out
+
+
+def int8_serve_512(torch, cli512, ck, tag, tmp, snap, path, argv):
+    """One cli.test_512 run on the fixture's 8 pairs (fullbody, fused route),
+    launch counts set to 0 just before and read just after."""
+    from pasta_gan_tpu_torch.data import image_io
+
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    written = cli512.main(["--network", snap, "--dataroot", fixture_root(), "--change_region", "fullbody",
+                           "--batchsize", "8", "--outdir", os.path.join(tmp, path)] + argv)
+    torch.cuda.synchronize()
+    counts = ck.launch_counts()
+    print(f"cli.test_512 ({path}, {' '.join(argv)}): {len(written)} triptychs in {time.perf_counter() - t0:.2f} s "
+          f"(first call, includes loading and calibration); launches {counts} [{tag}]", flush=True)
+    assert len(written) == 8 and all(image_io.read_image(p).shape == (512, 960, 3) for p in written), path
+    ran = {name for name, n in counts.items() if n > 0}
+    assert ran == PATH_KERNELS[path], f"{path} launched {sorted(ran)}, expected {sorted(PATH_KERNELS[path])}"
+    return counts
+
+
+def int8_serving_phase(torch, wk, ck, tag, tmp):
+    """int8 serving (W8A8, ops/quant.py) on the snapshots of the Full, V18 and
+    512 serving phases: cli.test --quant int8_static --calib_batches 2 and
+    --quant int8 (Full, 16 synthetic pairs), --generator v18 --quant
+    int8_static, and cli.test_512 --quant int8_static (fullbody, the
+    fixture's 8 pairs), each launching exactly its path's kernels; the
+    int8_conv classes of one batch-16 Full int8_static forward and one
+    batch-8 Generator512 forward (bf16), each held to its plain version at
+    max abs error 0 and timed beside its bound, the library yardstick and the
+    bf16 cuDNN conv; the card against the CPU (int8_static, full width, batch
+    2, fp32, the same calibrated scales); int8 and int8_static against the
+    fp32 forward on the timed batch; end-to-end timing and profiles (Full at
+    batch 16 and 1 in both modes, 512 int8_static at batch 8 and 1, bf16)
+    and peak memory.  Returns (the serving runs' launch counts by path, the
+    kernels line's int8_conv result)."""
+    from pasta_gan_tpu_torch.cli import test as cli
+    from pasta_gan_tpu_torch.cli import test_512 as cli512
+    from pasta_gan_tpu_torch.data import dataset as tds
+    from pasta_gan_tpu_torch.models import GeneratorFull
+
+    snap, snap_v18, snap_512 = (os.path.join(tmp, f"snapshot{s}.pt") for s in ("", "_v18", "_512"))
+    launches = {}
+    for path, argv in (("serving_int8_static", ["--network", snap, "--quant", "int8_static", "--calib_batches", "2"]),
+                       ("serving_int8", ["--network", snap, "--quant", "int8"]),
+                       ("serving_v18_int8_static", ["--network", snap_v18, "--generator", "v18", "--quant",
+                                                    "int8_static"])):
+        launches[path], _ = serve(torch, cli, ck, tag, path, argv + ["--outdir", os.path.join(tmp, path)])
+    launches["serving_512_int8_static"] = int8_serve_512(torch, cli512, ck, tag, tmp, snap_512,
+                                                         "serving_512_int8_static", ["--quant", "int8_static"])
+
+    # ---- the int8_conv classes of one batch-16 Full forward and one batch-8 Generator512 forward, bf16
+    gen, w_avg = cli.load_generator(snap, torch.device("cuda"))
+    batches = tryon_batches(torch, tds.collate, tds.SyntheticUvitonDataset(num_samples=16))
+    _, p16, g16, _ = batches[0]
+    b32 = tds.prepare_tryon_batch(p16, g16, device="cuda")
+    o32 = cli.tryon_forward(gen, w_avg, b32).float()
+    gen.set_dtype(torch.bfloat16)
+    b16 = {k: v.to(torch.bfloat16) for k, v in b32.items()}
+    cli.calibrate_int8_static(gen, w_avg, [b16])
+    full_classes = int8_kernel_classes(torch, "GeneratorFull int8_static forward (batch 16, bf16)", gen, w_avg, b16,
+                                       tag)
+    main_cls = max(full_classes, key=lambda c: full_classes[c][0] * full_classes[c][1]["entry_ms"])
+    result = full_classes[main_cls][1]
+    print(f"int8_conv's main class (the most time in the Full forward): {main_cls} [{tag}]", flush=True)
+
+    # ---- int8 and int8_static against the fp32 forward on the timed batch (bf16 compute)
+    rels = {}
+    for mode in ("int8_static", "int8"):
+        gen.quant = mode
+        o8 = cli.tryon_forward(gen, w_avg, b16).float()
+        assert tuple(o8.shape) == (16, 256, 256, 3) and bool(torch.isfinite(o8).all()), f"bad {mode} try-on images"
+        rels[mode] = float((o8 - o32).norm() / o32.norm())
+    print(f"int8 vs fp32 forward (batch 16, full width, bf16 compute): finetune relative L2 error int8_static "
+          f"{rels['int8_static']:.4g}, int8 {rels['int8']:.4g} (limit {INT8_REL_L2}; bf16 alone: the Full serving "
+          f"phase's line) [{tag}]", flush=True)
+    assert max(rels.values()) <= INT8_REL_L2, f"the int8 forward differs from the fp32 one: {rels}"
+    del o32, o8, b32
+
+    # ---- end-to-end timing (routing + bf16 int8 forward) and where the time goes, Full
+    gen.quant = "int8_static"
+    torch.cuda.reset_peak_memory_stats()
+    for mode in ("int8_static", "int8"):
+        gen.quant = mode
+        time_tryon(torch, cli, gen, w_avg, lambda p, gm: tds.prepare_tryon_batch(p, gm, device="cuda"), batches,
+                   f"full {mode}", tag)
+    print(f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated (Full int8) [{tag}]", flush=True)
+    del gen, b16
+    torch.cuda.empty_cache()
+
+    # ---- Generator512: classes at batch 8, timing at batch 8 and 1
+    gen, w_avg = cli.load_generator(snap_512, torch.device("cuda"), "512")
+    gen.set_dtype(torch.bfloat16)
+    p8, g8 = (on_card(torch, d) for d in fixture_512_batch(tds, 8))
+    route512 = lambda p, gm: tds.prepare_tryon_batch_512(p, gm, "fullbody", device="cuda")  # noqa: E731
+    b8 = {k: v.to(torch.bfloat16) for k, v in route512(p8, g8).items()}
+    cli.calibrate_int8_static(gen, w_avg, [b8])
+    int8_kernel_classes(torch, "Generator512 int8_static forward (batch 8, bf16)", gen, w_avg, b8, tag)
+    p1, g1 = (on_card(torch, d) for d in fixture_512_batch(tds, 1))
+    torch.cuda.reset_peak_memory_stats()
+    time_tryon(torch, cli, gen, w_avg, route512, [(8, p8, g8, 10), (1, p1, g1, 20)], "512 fullbody int8_static",
+               tag, res=512)
+    print(f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated (512 int8_static) [{tag}]", flush=True)
+    del gen, b8
+    torch.cuda.empty_cache()
+
+    # ---- the card against the CPU: int8_static, full width, batch 2, fp32, the card's calibrated scales
+    ds = tds.SyntheticUvitonDataset(num_samples=4, seed=3)
+    person, garment = tds.collate([ds[0], ds[1]]), tds.collate([ds[2], ds[3]])
+    b_cpu = tds.prepare_tryon_batch(person, garment, device="cpu")
+    gen_gpu, w_gpu = cli.load_generator(snap, torch.device("cuda"))
+    cli.calibrate_int8_static(gen_gpu, w_gpu, [{k: v.cuda() for k, v in b_cpu.items()}])
+    gen_cpu, w_cpu = cli.load_generator(snap, "cpu")
+    gen_cpu.load_quant_scales({k: v.cpu() for k, v in gen_gpu.quant_scales().items()})
+    gen_cpu.quant = "int8_static"
+    t0 = time.perf_counter()
+    o_cpu = cli.tryon_forward(gen_cpu, w_cpu, b_cpu)
+    cpu_s = time.perf_counter() - t0
+    b_gpu = {k: v.cuda() for k, v in b_cpu.items()}
+    o_gpu = cli.tryon_forward(gen_gpu, w_gpu, b_gpu)
+    rel = float((o_gpu.cpu() - o_cpu).norm() / o_cpu.norm())
+    # the forward's own move (the same algorithm on either device; measured on the card, where it is fast)
+    sens = 0.0
+    for seed in (1, 2):
+        rng = torch.Generator(device="cuda").manual_seed(seed)
+        moved = {k: v if "mask" in k else v * (1 + INT8_PERTURB * torch.randn(v.shape, generator=rng, device="cuda"))
+                 for k, v in b_gpu.items()}
+        sens = max(sens, float((cli.tryon_forward(gen_gpu, w_gpu, moved) - o_gpu).norm() / o_gpu.norm()))
+    o_gpu = o_gpu.cpu()
+    print(f"int8_static card vs CPU (full width, batch 2, fp32, the card's calibrated scales): finetune relative L2 "
+          f"{rel:.4g}, max |diff| {float((o_gpu - o_cpu).abs().max()):.4g}; the forward's own move under a "
+          f"{INT8_PERTURB:g} relative input change {sens:.4g} (limit {INT8_SENSITIVITY_FACTOR} x that); one CPU "
+          f"forward {cpu_s:.1f} s [{tag}]", flush=True)
+    assert rel <= INT8_SENSITIVITY_FACTOR * sens, f"int8_static on the card differs from the CPU: {rel} vs {sens}"
+    del gen_gpu, gen_cpu
+    torch.cuda.empty_cache()
+    return launches, result
+
+
 def device_profile(torch, fn, iters=5, top=8):
     """Device ms and device operations per run of fn() under torch.profiler
     (one stream, so operations do not overlap), and the `top` operations by
@@ -1910,6 +2235,8 @@ def main():
         launches = {"serving_full": slice_phase(torch, wk, ck, tag, tmp)}
         launches.update(v18_phase(torch, wk, ck, tag, tmp))
         launches.update(serving_512_phase(torch, wk, ck, tag, tmp))
+        int8_launches, results["int8_conv"] = int8_serving_phase(torch, wk, ck, tag, tmp)
+        launches.update(int8_launches)
         launches["training"] = train_phase(torch, ck, tag, tmp)
         launches["training_ada"] = train_ada_phase(torch, ck, tag, tmp)
         launches.update(real_data_phase(torch, ck, tag, tmp))

@@ -6,7 +6,8 @@ encode_style / encode_pose / map_ws / synthesize sequence, un-pads the
 256x256 canvas to 256x192 and writes `person__garment.png` files.
 
   python -m pasta_gan_tpu_torch.cli.test --network snapshot.pt --dataroot /path/to/UPT \\
-      --outdir ./test_results --batchsize 16 [--generator v18] [--denorm separate]
+      --outdir ./test_results --batchsize 16 [--generator v18] [--denorm separate] \
+      [--quant int8|int8_static [--calib_batches 2]]
 
 `--generator` names the interface: `full` (GeneratorFull, 42-channel style
 input, `prepare_tryon_batch`) or `v18` (the released-256 checkpoint's
@@ -20,7 +21,11 @@ kernel, then threshold, erosion and composite as separate passes).
 decoded on the host a batch at a time; output files are named
 `<person>__<garment>.png` after the two image names without their
 extensions.  `--synthetic N` serves N synthetic pairs instead; one of the two
-is required.  int8 and multi-card serving come later.
+is required.  `--quant` serves int8 (ops/quant.py): `int8` quantizes each
+activation with its own per-sample scale; `int8_static` first calibrates the
+activation scales on the first `--calib_batches` batches of the pairs
+(`calibrate_int8_static`), then serves with them frozen.  Serving over
+several cards comes later.
 """
 
 from __future__ import annotations
@@ -60,6 +65,26 @@ def load_generator(network: str, device="cuda", generator: Optional[str] = None)
 
 
 @torch.no_grad()
+def calibrate_int8_static(gen, w_avg, batches, truncation_psi: float = 1.0) -> None:
+    """int8_static serving: run the try-on forward in the "int8_calib" mode
+    over `batches`, so that every activation site folds its per-tensor amax
+    into its running `act_amax` (from zero), then freeze the scales:
+    `gen.quant` is "int8_static" on return."""
+    from ..ops.quant import reset_quant_scales
+
+    if not batches:
+        raise SystemExit(
+            "--quant int8_static: no calibration batches could be built "
+            "(empty pairs list — check --dataroot / --synthetic)"
+        )
+    reset_quant_scales(gen)
+    gen.quant = "int8_calib"
+    for b in batches:
+        tryon_forward(gen, w_avg, b, truncation_psi)
+    gen.quant = "int8_static"
+
+
+@torch.no_grad()
 def tryon_forward(gen, w_avg, batch, truncation_psi: float = 1.0) -> torch.Tensor:
     """The explicit style / pose / mapping / synthesis calls; returns the
     finetune image [B, H, W, 3] (NHWC) of either interface."""
@@ -74,6 +99,26 @@ def tryon_forward(gen, w_avg, batch, truncation_psi: float = 1.0) -> torch.Tenso
         batch["denorm_upper_mask"], batch["denorm_lower_mask"],
         noise_mode="none",
     )[1]
+
+
+def add_quant_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--quant", choices=["int8", "int8_static"], default=None,
+                   help="int8 serving (ops/quant.py): 'int8' = per-sample activation scales; 'int8_static' = "
+                        "activation scales calibrated on the first --calib_batches batches, then frozen")
+    p.add_argument("--calib_batches", type=int, default=2, help="batches that calibrate the int8_static scales")
+
+
+def set_quant(gen, w_avg, args, n_pairs: int, batch_at) -> None:
+    """Put `gen` in the serving mode of `--quant`; for int8_static, calibrate
+    first on the batches that start at 0, B, ... below --calib_batches * B
+    pairs (`batch_at(i)` routes the batch that starts at pair i)."""
+    if args.quant == "int8_static":
+        B = args.batchsize
+        batches = [batch_at(i) for i in range(0, min(n_pairs, args.calib_batches * B), B)]
+        calibrate_int8_static(gen, w_avg, batches, args.truncation_psi)
+        print(f"calibrated int8 activation scales on {len(batches)} batches")
+    else:
+        gen.quant = args.quant
 
 
 def main(argv=None):
@@ -92,6 +137,7 @@ def main(argv=None):
     p.add_argument("--denorm", choices=DENORM_ROUTES, default="fused",
                    help="denorm route of the patch routing: one fused composite kernel, or the "
                         "denorm_warp kernel then separate threshold / erosion / composite passes")
+    add_quant_args(p)
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
     if args.synthetic <= 0 and args.dataroot is None:
@@ -121,11 +167,15 @@ def main(argv=None):
             r = test_ds[i]
             return r["person"], r["garment"], r["person_name"], r["garment_name"]
 
+    def make_batch(i):
+        chunk = [pair(k) for k in range(i, min(i + args.batchsize, n_pairs))]
+        return chunk, prepare(collate([c[0] for c in chunk]), collate([c[1] for c in chunk]), device=device,
+                              denorm=args.denorm)
+
+    set_quant(gen, w_avg, args, n_pairs, lambda i: make_batch(i)[1])
     written = []
     for i in range(0, n_pairs, args.batchsize):
-        chunk = [pair(k) for k in range(i, min(i + args.batchsize, n_pairs))]
-        batch = prepare(collate([c[0] for c in chunk]), collate([c[1] for c in chunk]), device=device,
-                        denorm=args.denorm)
+        chunk, batch = make_batch(i)
         out = tryon_forward(gen, w_avg, batch, args.truncation_psi).float()
         if not bool(torch.isfinite(out).all()):
             raise RuntimeError("the generator produced non-finite try-on images")

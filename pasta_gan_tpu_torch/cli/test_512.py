@@ -8,7 +8,8 @@ garment | person | result triptych per pair, each panel un-padded from the
 square canvas to the 512x320 aspect (96/512 of the width off each side):
 
   python -m pasta_gan_tpu_torch.cli.test_512 --network snapshot.pt --dataroot /path/to/UPT \\
-      --outdir ./test_512 --batchsize 8 --change_region upperbody [--denorm separate]
+      --outdir ./test_512 --batchsize 8 --change_region upperbody [--denorm separate] \
+      [--quant int8|int8_static [--calib_batches 2]]
 
 `--change_region` picks which pieces route: `fullbody` (the garment's top
 and pants), `upperbody` (its top, the person's own pants) or `lowerbody`
@@ -18,8 +19,9 @@ UPT_subset{1,2}_512_320/test_pairs_front_list_shuffle_0508.txt
 drawn at 256x192 (left padding 32) and resized to the model's resolution by
 nearest neighbour, as the JAX CLI does.  Output files are named
 `<person>__<garment>.png`.  `--denorm` picks the routing's denorm route, as in
-`cli/test.py`.  int8 serving (`--quant`) and several cards (`--dp`) are not
-ported yet and refuse.
+`cli/test.py`, and so do `--quant` and `--calib_batches` (int8 serving; the
+int8_static scales are calibrated on the first batches of the pairs).
+Serving over several cards (`--dp`) is not ported yet and refuses.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from .test import load_generator, save_image, tryon_forward
+from .test import add_quant_args, load_generator, save_image, set_quant, tryon_forward
 
 
 def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
@@ -55,12 +57,10 @@ def main(argv=None):
     p.add_argument("--denorm", choices=DENORM_ROUTES, default="fused",
                    help="denorm route of the patch routing: one fused composite kernel, or the "
                         "denorm_warp kernel then separate threshold / erosion / composite passes")
-    p.add_argument("--quant", choices=["int8", "int8_static"], default=None, help="int8 serving (not ported yet)")
+    add_quant_args(p)
     p.add_argument("--dp", action="store_true", help="serving over several cards (not ported yet)")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
-    if args.quant is not None:
-        raise SystemExit(f"--quant {args.quant}: int8 serving is a later slice of the port (ROADMAP §A 8)")
     if args.dp:
         raise SystemExit("--dp: serving over several cards is a later slice of the port (ROADMAP §A 11)")
     if args.synthetic <= 0 and args.dataroot is None:
@@ -86,8 +86,7 @@ def main(argv=None):
             r = test_ds[i]
             return r["person"], r["garment"], r["person_name"], r["garment_name"]
 
-    written = []
-    for i in range(0, n_pairs, args.batchsize):
+    def make_batch(i):
         chunk = [pair(k) for k in range(i, min(i + args.batchsize, n_pairs))]
         person, garment = collate([c[0] for c in chunk]), collate([c[1] for c in chunk])
         # the samples' square-padding x offset: 96 at 512x320, 32 for 256x192 samples
@@ -95,6 +94,12 @@ def main(argv=None):
                                         pad_x=float(person["left_padding"][0]), device=device, denorm=args.denorm)
         if batch["pose"].shape[1] != res:  # samples drawn at another size: every image to the model's, as JAX does
             batch = {k: resize_nearest(v, (res, res)) for k, v in batch.items()}
+        return chunk, garment, batch
+
+    set_quant(gen, w_avg, args, n_pairs, lambda i: make_batch(i)[2])
+    written = []
+    for i in range(0, n_pairs, args.batchsize):
+        chunk, garment, batch = make_batch(i)
         out = tryon_forward(gen, w_avg, batch, args.truncation_psi).float()
         if not bool(torch.isfinite(out).all()):
             raise RuntimeError("the generator produced non-finite try-on images")

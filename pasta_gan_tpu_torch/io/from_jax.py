@@ -1,5 +1,6 @@
 """JAX variables -> this package's state_dicts: GeneratorFull, GeneratorV18, Discriminator, VGG19,
-and the metrics' SimpleConvFeatures.
+and the metrics' SimpleConvFeatures; and a generator's int8 "quant_scales" collection ->
+its activation sites (`quant_scales_from_jax`).
 
 The reverse of `pasta_gan_tpu/io/torch_import.py:_ref_key`, kept here so the
 port never imports the JAX package.  `variables` is the JAX package's nested
@@ -104,6 +105,18 @@ def state_dict_from_jax(variables, expected: Optional[Mapping[str, torch.Tensor]
             raise KeyError(f"two JAX leaves map to {key}")
         out[key] = torch.from_numpy(np.array(a, order="C", copy=True))
     return _checked(out, expected)
+
+
+def quant_scales_from_jax(scales) -> Dict[str, torch.Tensor]:
+    """A JAX generator's "quant_scales" collection (each site's `act_amax`)
+    -> {site name: fp32 scalar}, named by the same translation as the
+    parameters: what `GeneratorFull.load_quant_scales` takes (it raises on a
+    missing or an unknown site)."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(scales):
+        key, _ = port_key(path)
+        out[key] = torch.tensor(float(np.asarray(leaf, dtype=np.float32)), dtype=torch.float32)
+    return out
 
 
 def _checked(out, expected):

@@ -9,6 +9,13 @@ batch's NHWC tensors and returns (img, finetune_img, pred_parsing) in NHWC.
 The sub-callables `encode_style`, `encode_pose`, `map_ws` and `synthesize`
 take the same NHWC inputs; the features they hand to `synthesize` (pose
 feature, retain features) are internal NCHW tensors.
+
+`quant` is the int8 serving mode (None, "int8", "int8_calib" or
+"int8_static"; ops/quant.py), settable after construction so that one model
+can be calibrated and then served; the mapping and the ToRGB layers stay
+float.  The activation sites' scales are non-persistent buffers, so the
+state_dict is the same under every mode; `quant_scales()` /
+`load_quant_scales()` read and set them by the JAX package's site names.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from ..nn.encoders import ConstEncoderNetwork, StyleEncoderNetworkV16
 from ..nn.layers import Layer
 from ..nn.mapping import MappingNetwork
 from ..nn.synthesis import SynthesisNetworkFull
+from ..ops import quant as q
 
 
 def nchw(x: torch.Tensor) -> torch.Tensor:
@@ -45,7 +53,7 @@ class GeneratorFull(nn.Module):
 
     def __init__(self, z_dim=0, c_dim=512, w_dim=512, img_resolution=256, img_channels=3,
                  mapping_layers=1, channel_base=16384, channel_max=512, conv_clamp=256.0,
-                 use_noise=True, style_input_nc=42, dtype=torch.float32):
+                 use_noise=True, style_input_nc=42, dtype=torch.float32, quant=None):
         super().__init__()
         self.config = dict(
             z_dim=z_dim, c_dim=c_dim, w_dim=w_dim, img_resolution=img_resolution,
@@ -68,6 +76,28 @@ class GeneratorFull(nn.Module):
         self.style_encoding = StyleEncoderNetworkV16(style_input_nc, output_nc=512, ngf=64,
                                                      extra_convs=self.style_extra_convs)
         self.set_dtype(dtype)
+        self.quant = quant
+
+    @property
+    def quant(self):
+        return self._quant
+
+    @quant.setter
+    def quant(self, mode) -> None:
+        """Set the int8 serving mode of every module that follows it."""
+        if mode is not None and not q.is_int8(mode):
+            raise ValueError(f"quant must be None or one of {q.INT8_MODES}, got {mode!r}")
+        self._quant = mode
+        for m in self.modules():
+            if isinstance(m, q.QuantMode):
+                m.quant = mode
+
+    def quant_scales(self) -> Dict[str, torch.Tensor]:
+        return q.quant_scales(self)
+
+    def load_quant_scales(self, scales: Dict[str, torch.Tensor]) -> "GeneratorFull":
+        q.load_quant_scales(self, scales)
+        return self
 
     def set_dtype(self, dtype: torch.dtype) -> "GeneratorFull":
         """Compute dtype of every layer (parameters stay float32)."""

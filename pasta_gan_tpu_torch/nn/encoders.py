@@ -2,6 +2,11 @@
 
 Submodule names follow the reference state_dict: `model.<i>` for the
 Sequential stacks, `feat_enc.<i>` for the retain-feature branch.
+
+int8 serving, as in the JAX package: every conv of the pose encoder (its
+reduced-width `proj` excepted), of the retain branch and of the style
+encoder's down and extra stages has an int8 site; the style encoder's 1x1
+stem, its `DenseNorm`s and its `fc` stay float.
 """
 
 from __future__ import annotations
@@ -20,9 +25,9 @@ class ConstEncoderNetwork(nn.Module):
         super().__init__()
         mult_ins = [1, 2, 4, 4, 4, 8]
         mult_outs = [2, 4, 4, 4, 8, 8]
-        layers = [Conv2dLayer(input_nc, ngf, 1)]
+        layers = [Conv2dLayer(input_nc, ngf, 1, quant_site=True)]
         for i in range(n_downsampling):
-            layers.append(Conv2dLayer(ngf * mult_ins[i], ngf * mult_outs[i], 3, down=2))
+            layers.append(Conv2dLayer(ngf * mult_ins[i], ngf * mult_outs[i], 3, down=2, quant_site=True))
         self.model = nn.Sequential(*layers)
         # Reduced configurations only: a 1x1 projection aligns the last
         # stage's channels with the synthesis pyramid's channels(4).
@@ -39,7 +44,8 @@ class RetainFeatureEncoder(nn.ModuleList):
     features at resolutions /1, /2, /4, /8."""
 
     def __init__(self, ngf=64):
-        super().__init__([Conv2dLayer(3, ngf, 3)] + [Conv2dLayer(ngf, ngf, 3, down=2) for _ in range(3)])
+        super().__init__([Conv2dLayer(3, ngf, 3, quant_site=True)]
+                         + [Conv2dLayer(ngf, ngf, 3, down=2, quant_site=True) for _ in range(3)])
 
     def forward(self, x):
         feats = []
@@ -63,10 +69,10 @@ class StyleEncoderNetworkV16(nn.Module):
         layers = [Conv2dLayer(input_nc, ngf, 1)]
         for i in range(3):
             layers.append(DenseNorm(ngf * mult_ins[i], ngf * mult_ins[i]))
-            layers.append(Conv2dLayer(ngf * mult_ins[i], ngf * mult_outs[i], 3, down=2))
+            layers.append(Conv2dLayer(ngf * mult_ins[i], ngf * mult_outs[i], 3, down=2, quant_site=True))
         for _ in range(extra_convs):
             layers.append(DenseNorm(ngf * 8, ngf * 8))
-            layers.append(Conv2dLayer(ngf * 8, ngf * 8, 3))
+            layers.append(Conv2dLayer(ngf * 8, ngf * 8, 3, quant_site=True))
         self.model = nn.Sequential(*layers)
         self.fc = FullyConnectedLayer(output_nc, output_nc)
 

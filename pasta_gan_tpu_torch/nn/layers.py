@@ -8,6 +8,14 @@ names are the reference state_dict names.
 
 `reset_parameters(generator)` draws every parameter from an explicit
 `torch.Generator`.
+
+int8 serving (ops/quant.py): a `Conv2dLayer` built with `quant_site=True`
+owns an activation site and, once its `quant` is an int8 mode, runs its conv
+int8: at stride 1 as it is, and a down=2 conv as the float FIR pre-pass
+(padding k//2 + 1) followed by an int8 stride-2 conv of the filtered tensor,
+quantized at this layer's site.  Given a `QuantizedActivation` (a quantize
+shared with other convs) it runs int8 on it.  A stride-1 `ResBlock`
+quantizes its input once, at its own site, for its skip and conv0.
 """
 
 from __future__ import annotations
@@ -21,7 +29,8 @@ from torch import nn
 
 from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.conv2d_resample import conv2d_resample
-from ..ops.upfirdn2d import setup_filter
+from ..ops.quant import ActScale, QuantizedActivation, QuantMode, int8_conv2d, is_int8
+from ..ops.upfirdn2d import setup_filter, upfirdn2d
 
 
 def normalize_2nd_moment(x: torch.Tensor, dim: int = -1, eps: float = 1e-8) -> torch.Tensor:
@@ -37,8 +46,8 @@ def instance_norm_2d(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ((x32 - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
-class Layer(nn.Module):
-    """Base: a compute dtype and a seeded parameter reset."""
+class Layer(QuantMode, nn.Module):
+    """Base: a compute dtype, an int8 serving mode and a seeded parameter reset."""
 
     compute_dtype: torch.dtype = torch.float32
 
@@ -86,11 +95,13 @@ class FullyConnectedLayer(Layer):
 
 
 class Conv2dLayer(Layer):
-    """Equalized-LR conv + FIR resample + bias_act."""
+    """Equalized-LR conv + FIR resample + bias_act; `quant_site` gives it the
+    activation site of int8 serving (see the module docstring)."""
 
     def __init__(self, in_channels, out_channels, kernel_size, bias=True, activation="linear",
-                 up=1, down=1, resample_filter=(1, 3, 3, 1), conv_clamp=None):
+                 up=1, down=1, resample_filter=(1, 3, 3, 1), conv_clamp=None, quant_site=False):
         super().__init__()
+        self.act_scale = ActScale() if quant_site else None
         self.in_channels, self.out_channels, self.kernel_size = in_channels, out_channels, kernel_size
         self.activation, self.up, self.down, self.conv_clamp = activation, up, down, conv_clamp
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size, kernel_size))
@@ -105,32 +116,62 @@ class Conv2dLayer(Layer):
                 self.bias.zero_()
 
     def forward(self, x, gain: float = 1.0):
+        """`x` may be a `QuantizedActivation` (int8 modes, stride 1)."""
         k = self.kernel_size
-        ws = (self.weight * (1.0 / math.sqrt(self.in_channels * k * k))).to(self.compute_dtype)
-        resample = self.up > 1 or self.down > 1
-        x = conv2d_resample(
-            x.to(self.compute_dtype), ws, f=self.resample_filter if resample else None,
-            up=self.up, down=self.down, padding=k // 2, flip_weight=(self.up == 1),
-        )
+        q = self.quant if is_int8(self.quant) else None
+        if isinstance(x, QuantizedActivation):
+            if q is None or self.up != 1 or self.down != 1:
+                raise ValueError("a quantized input needs an int8 mode and a stride-1 conv")
+            x = self._int8(x, q)
+        elif q is not None and self.act_scale is not None and self.up == 1 and self.down in (1, 2):
+            x = self._int8(x, q)
+        else:
+            ws = (self.weight * (1.0 / math.sqrt(self.in_channels * k * k))).to(self.compute_dtype)
+            resample = self.up > 1 or self.down > 1
+            x = conv2d_resample(
+                x.to(self.compute_dtype), ws, f=self.resample_filter if resample else None,
+                up=self.up, down=self.down, padding=k // 2, flip_weight=(self.up == 1),
+            )
         act_gain = activation_funcs[self.activation].def_gain * gain
         act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
         return bias_act(x, self.bias, act=self.activation, gain=act_gain, clamp=act_clamp)
 
+    def _int8(self, x, q):
+        """The conv of int8 serving: the fp32 gain-scaled weight quantized per
+        output channel, the output in the compute dtype."""
+        k = self.kernel_size
+        w = self.weight * (1.0 / math.sqrt(self.in_channels * k * k))
+        dt = self.compute_dtype
+        if self.down == 1:
+            xq = x if isinstance(x, QuantizedActivation) else self.act_scale.quantize(x, q)
+            return int8_conv2d(xq, w, padding=(k // 2,) * 4, out_dtype=dt)
+        fw = self.resample_filter.shape[-1]
+        p = (k // 2 + (fw - 1) // 2, k // 2 + (fw - 2) // 2) * 2
+        xf = upfirdn2d(x.to(dt), self.resample_filter, padding=p)
+        return int8_conv2d(self.act_scale.quantize(xf, q), w, stride=2, out_dtype=dt)
 
-class ResBlock(nn.Module):
+
+class ResBlock(QuantMode, nn.Module):
     """Residual block with gain-0.5 skip; 3x3 convs (the reference ignores its
     kernel_size argument)."""
 
     def __init__(self, in_channels, out_channels, activation="linear", up=1, down=1,
-                 resample_filter=(1, 3, 3, 1), conv_clamp=None):
+                 resample_filter=(1, 3, 3, 1), conv_clamp=None, quant_site=False):
         super().__init__()
-        common = dict(up=up, down=down, resample_filter=resample_filter, conv_clamp=conv_clamp)
+        # int8: a stride-1 block quantizes x once here for skip and conv0; a
+        # down block's skip and conv0 filter x first, each at its own site
+        shared = quant_site and up == 1 and down == 1
+        self.act_scale = ActScale() if shared else None
+        common = dict(up=up, down=down, resample_filter=resample_filter, conv_clamp=conv_clamp,
+                      quant_site=quant_site and not shared)
         self.skip = Conv2dLayer(in_channels, out_channels, 1, bias=False, **common)
         self.conv0 = Conv2dLayer(in_channels, out_channels, 3, activation=activation, **common)
         self.conv1 = Conv2dLayer(out_channels, out_channels, 3, activation=activation,
-                                 resample_filter=resample_filter, conv_clamp=conv_clamp)
+                                 resample_filter=resample_filter, conv_clamp=conv_clamp, quant_site=quant_site)
 
     def forward(self, x):
+        if is_int8(self.quant) and self.act_scale is not None:
+            x = self.act_scale.quantize(x.to(self.conv1.compute_dtype), self.quant)
         y = self.skip(x, gain=math.sqrt(0.5))
         x = self.conv0(x)
         x = self.conv1(x, gain=math.sqrt(0.5))

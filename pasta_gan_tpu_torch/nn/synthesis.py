@@ -16,6 +16,14 @@ head whose argmax gives the SPADE branch its upper/lower masks) and "v18"
 (the released-256 checkpoint: two 1-channel sigmoid mask heads, read
 directly, and the texture block builds and discards the same heads so the
 parameter shapes match the checkpoint).
+
+int8 serving (ops/quant.py), as in the JAX package: a `SynthesisLayer`
+quantizes its modulated activation at its own site, where
+`modulated_conv2d` runs the conv int8 (the stride-1 convs and the up-convs
+of inputs of at least 32 rows, with the FIR folded); the retain merge
+convs and the SPADE encoder run int8; the SPADE features are quantized once
+(`spade_feat_quant`) for the nine `conv_mlp` convs of the three SPADE
+blocks; the ToRGB layers and their heads stay float.
 """
 
 from __future__ import annotations
@@ -28,6 +36,7 @@ from torch import nn
 
 from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.modulated_conv2d import modulated_conv2d
+from ..ops.quant import ActScale, QuantMode, is_int8
 from ..ops.upfirdn2d import upsample2d
 from .layers import Conv2dLayer, FullyConnectedLayer, Layer, ResBlock, _filter_buffer, _normal_
 from .spade import SpadeResBlock
@@ -43,6 +52,9 @@ class SynthesisLayer(Layer):
         self.resolution, self.kernel_size, self.up = resolution, kernel_size, up
         self.use_noise, self.activation, self.conv_clamp = use_noise, activation, conv_clamp
         self.affine = FullyConnectedLayer(w_dim, in_channels, bias_init=1.0)
+        # int8: a site where modulated_conv2d runs the conv int8 (stride 1, or the folded up-conv)
+        int8_conv = up == 1 or (up == 2 and kernel_size == 3 and resolution // 2 >= 32)
+        self.act_scale = ActScale() if int8_conv else None
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size, kernel_size))
         self.noise_strength = nn.Parameter(torch.zeros(())) if use_noise else None
         self.bias = nn.Parameter(torch.zeros(out_channels))
@@ -80,7 +92,7 @@ class SynthesisLayer(Layer):
             x.to(dt), self.weight.to(dt), styles, noise=noise, up=self.up,
             padding=self.kernel_size // 2,
             resample_filter=self.resample_filter if self.up > 1 else None,
-            flip_weight=(self.up == 1),
+            flip_weight=(self.up == 1), quant=self.quant, quant_site=self.act_scale,
         )
         act_gain = activation_funcs[self.activation].def_gain * gain
         act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
@@ -153,7 +165,7 @@ class SynthesisBlockFull(Layer):
         self.conv1 = SynthesisLayer(out_channels, out_channels, **common)
         if in_channels != 0 and resolution > merge_min_res:
             self.merge_conv = Conv2dLayer(out_channels + cat_channels, out_channels, 1,
-                                          resample_filter=resample_filter)
+                                          resample_filter=resample_filter, quant_site=True)
         self.torgb = ToRGBLayerFull(out_channels, img_channels, w_dim, conv_clamp=conv_clamp,
                                     head=head if is_last and is_style else None)
         _filter_buffer(self, resample_filter)
@@ -189,7 +201,7 @@ class SynthesisBlockFull(Layer):
         return x, img, pred_parsing
 
 
-class SynthesisNetworkFull(nn.Module):
+class SynthesisNetworkFull(QuantMode, nn.Module):
     """Skip pyramid start_res -> img_resolution + SPADE refinement + texture finetune head.
 
     The 512 generator starts its pyramid at 8 (`start_res=8`); its SPADE
@@ -215,7 +227,9 @@ class SynthesisNetworkFull(nn.Module):
                 is_last=res == img_resolution, is_style=True, **common))
         ch = self.channels(self.block_resolutions[-2])
         for i in (1, 2, 3):
-            setattr(self, f"spade_b128_{i}", SpadeResBlock(ch, ch, resolution=128, feat_multiplier=2))
+            setattr(self, f"spade_b128_{i}", SpadeResBlock(ch, ch, resolution=128, feat_multiplier=2,
+                                                           feat_site=False))
+        self.spade_feat_quant = ActScale()  # int8: one quantize of the SPADE features for all three blocks
         res = self.block_resolutions[-1]
         # V18's texture block builds (and discards) the mask heads, Full's does not
         self.texture_b256 = SynthesisBlockFull(
@@ -223,9 +237,9 @@ class SynthesisNetworkFull(nn.Module):
             is_style=variant == "v18", **common)
         ngf = 64
         self.spade_encoder = nn.Sequential(
-            Conv2dLayer(3, ngf, 7, activation="relu"),
-            ResBlock(ngf, ngf, activation="relu"),
-            ResBlock(ngf, ngf * 2, activation="relu", down=2),
+            Conv2dLayer(3, ngf, 7, activation="relu", quant_site=True),
+            ResBlock(ngf, ngf, activation="relu", quant_site=True),
+            ResBlock(ngf, ngf * 2, activation="relu", down=2, quant_site=True),
         )
 
     def channels(self, res: int) -> int:
@@ -285,6 +299,8 @@ class SynthesisNetworkFull(nn.Module):
             torch.cat([denorm_upper_input, denorm_lower_input]),
         )
         spade_feat = torch.cat([spade_both[:N], spade_both[N:]], dim=1)
+        if is_int8(self.quant):
+            spade_feat = self.spade_feat_quant.quantize(spade_feat, self.quant)
         h = self.spade_b128_1(x_128, spade_feat)
         h = self.spade_b128_2(h, spade_feat)
         h = self.spade_b128_3(h, spade_feat)

@@ -8,6 +8,7 @@ Every hand-written kernel of the port is declared here, so that
 * `denorm_warp`  csrc/denorm_warp.cu   (wrapper: ops/warp_kernels.py)
 * `up2`          csrc/upfirdn2x.cu     (wrapper: ops/upfirdn_kernels.py)
 * `down2`        csrc/upfirdn2x.cu     (wrapper: ops/upfirdn_kernels.py)
+* `int8_conv`    csrc/int8_conv.cu     (wrapper: ops/quant.py)
 
 Kernels are built with nvcc into `pasta_gan_tpu_torch/build/` at first use
 (one shared library per source, plain C interface, loaded with ctypes; the
@@ -98,7 +99,10 @@ DENORM_WARP = CudaKernel(
 # (x, y, bf16, planes, H, W, extend | pad, gain, stream)
 UP2 = CudaKernel("up2", "upfirdn2x.cu", "pasta_up2", [_P, _P, _I, _L, _I, _I, _I, _F, _P])
 DOWN2 = CudaKernel("down2", "upfirdn2x.cu", "pasta_down2", [_P, _P, _I, _L, _I, _I, _I, _F, _P])
-KERNELS: Dict[str, CudaKernel] = {k.name: k for k in (NORM_WARP, COMPOSITE, DENORM_WARP, UP2, DOWN2)}
+# (x, w, taps, ntaps, sx, sx_stride, sw, out, bf16, N, C, H, W, O, Ho, Wo, stride, dilation, Kw, Tmax, stream)
+INT8_CONV = CudaKernel("int8_conv", "int8_conv.cu", "pasta_int8_conv",
+                       [_P, _P, _P, _P, _P, _I, _P, _P, _I] + [_I] * 11 + [_P])
+KERNELS: Dict[str, CudaKernel] = {k.name: k for k in (NORM_WARP, COMPOSITE, DENORM_WARP, UP2, DOWN2, INT8_CONV)}
 
 
 def reset_launch_counts() -> None:

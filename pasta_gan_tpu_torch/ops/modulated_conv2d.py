@@ -8,6 +8,14 @@ demodulation coefficients after it.  The coefficients use the identity
 
 so no per-sample weight tensor is built.  `prenorm_for_half` reproduces the
 fp16/bf16 overflow pre-normalization.  NCHW activations, OIHW weights.
+
+int8 serving (`quant`, ops/quant.py): the modulated activation is quantized
+at `quant_site` (an `ActScale`; styles make per-sample ranges, so the caller
+owns the site).  A stride-1 conv runs int8 as it is; the up=2 3x3 conv of an
+input of at least 32 rows folds its [1,3,3,1] FIR into a 6x6 kernel
+(`fold_up_weights`) run int8 with input dilation 2 and padding 3, as the JAX
+package does.  Every other case (the low-resolution up-convs) stays float,
+and so does the float path's up-conv, which keeps its upfirdn + conv route.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from typing import Optional
 import torch
 
 from .conv2d_resample import conv2d_resample
+from .quant import fold_up_weights, int8_conv2d, is_int8
 
 _HALF = (torch.float16, torch.bfloat16)
 
@@ -34,6 +43,8 @@ def modulated_conv2d(
     flip_weight: bool = True,
     spade_styles: Optional[torch.Tensor] = None,  # [N, I, H, W] spatial styles
     prenorm_for_half: bool = True,
+    quant: Optional[str] = None,  # int8 serving mode (ops/quant.py)
+    quant_site=None,  # the ActScale that quantizes the modulated tensor
 ) -> torch.Tensor:
     N = x.shape[0]
     out_channels, in_channels, kh, kw = weight.shape
@@ -60,9 +71,22 @@ def modulated_conv2d(
     else:
         x = x * styles.to(x.dtype)[:, :, None, None]
 
-    x = conv2d_resample(
-        x, weight, f=resample_filter, up=up, down=down, padding=padding, flip_weight=flip_weight
+    q = quant if is_int8(quant) and quant_site is not None else None
+    fold = (
+        up == 2 and down == 1 and not flip_weight and resample_filter is not None
+        and kh == 3 and kw == 3 and padding == 1 and tuple(resample_filter.shape) == (4, 4)
+        and x.shape[2] >= 32  # below, the 6x6 fold outweighs the upfirdn intermediate it replaces
     )
+    if q is not None and fold:
+        G = fold_up_weights(weight, resample_filter, gain=4.0)
+        x = int8_conv2d(quant_site.quantize(x, q), G, padding=(3, 3, 3, 3), lhs_dilation=2, out_dtype=x.dtype)
+    elif q is not None and up == 1 and down == 1:
+        x = int8_conv2d(quant_site.quantize(x, q), weight, padding=(padding,) * 4, flip_weight=flip_weight,
+                        out_dtype=x.dtype)
+    else:
+        x = conv2d_resample(
+            x, weight, f=resample_filter, up=up, down=down, padding=padding, flip_weight=flip_weight
+        )
     if demodulate:
         x = x * dcoefs.to(x.dtype)[:, :, None, None]
     if noise is not None:

@@ -4,8 +4,12 @@ One process, one card: host samples come from `InfiniteLoader` in the JAX
 loader's order (per-epoch permutations from `(seed, epoch)`, batches built
 ahead by worker processes), are routed on the card by `prepare_train_batch`,
 then Gmain + Dmain (`train_step`) every step and R1 (`d_r1_step`) every
-`d_reg_interval` steps, from the first.  Each tick prints one stats line and
-appends one JSON line to `stats.jsonl`.  Every `network_snapshot_ticks` ticks
+`d_reg_interval` steps, from the first.  Each step's stats and phase times
+go into a `Collector`; each tick prints one stats line from it and appends
+one row to `stats.jsonl` through `JsonlLogger`: {name: {num, mean, std}},
+`timestamp`, the JAX loop's flat extras (`Progress/tick`, `Progress/kimg`,
+`Timing/sec_per_tick`, `Timing/sec_per_kimg`, `Timing/total_sec`) and
+`Progress/step`, which the JAX loop does not write.  Every `network_snapshot_ticks` ticks
 (tick > 0), and when the run ends, it saves a network snapshot of G_ema
 (`network-snapshot-<kimg>.pt`, what `cli/test.py` serves) and a train-state
 checkpoint (`train-state-latest.pt`, what `--resume` reads).  Unless
@@ -21,7 +25,6 @@ host added; `Timing/data` is the wait for the loader plus the routing.
 from __future__ import annotations
 
 import dataclasses
-import json
 import multiprocessing
 import os
 import queue
@@ -37,6 +40,7 @@ import torch
 from ..data.dataset import collate, prepare_train_batch, prepare_tryon_grid_batch
 from ..io.checkpoints import restore_train_state, save_snapshot, save_train_state
 from ..runtime.config import TrainConfig, to_json
+from ..runtime.stats import Collector, JsonlLogger
 from ..utils import parsing_to_rgb, save_image_grid
 from .step import GANTrainer
 
@@ -212,11 +216,6 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _mean(records: List[Dict[str, float]], key: str) -> float:
-    vals = [r[key] for r in records if key in r]
-    return float(np.mean(vals)) if vals else float("nan")
-
-
 class SnapshotGrids:
     """The training run's image grids (`pasta_gan_tpu/train/loop.py:184-262`),
     written as PNGs into the run directory from a fixed batch: the first
@@ -301,11 +300,11 @@ def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg
     tick_start_nimg, cur_tick, batch_idx = cur_nimg, 0, 0
     start_time = tick_start_time = time.time()
     records: List[Dict[str, float]] = []
-    tick_records: List[Dict[str, float]] = []
+    collector = Collector()
     if verbose:
         print(f"Training for {total_kimg} kimg (batch {config.batch_size}) on {device}...")
     loader = InfiniteLoader(dataset, config.batch_size, seed=config.random_seed, num_workers=config.data_workers)
-    with loader, open(os.path.join(run_dir, "stats.jsonl"), "a") as stats_file:
+    with loader, JsonlLogger(os.path.join(run_dir, "stats.jsonl")) as jsonl:
         grids = SnapshotGrids(run_dir, dataset, config, device) if img_ticks else None
         while True:
             t0 = time.time()
@@ -322,7 +321,7 @@ def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg
                 rec.update({k: float(v) for k, v in r1_stats.items()})
                 rec["Timing/Dreg"] = time.time() - t_main
             records.append(rec)
-            tick_records.append(rec)
+            collector.report_dict(rec)
             cur_nimg += config.batch_size
             batch_idx += 1
 
@@ -331,27 +330,28 @@ def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg
                 continue
 
             tick_end = time.time()
+            collector.update()
             sec_per_tick = tick_end - tick_start_time
             sec_per_kimg = sec_per_tick / max((cur_nimg - tick_start_nimg) / 1000.0, 1e-8)
-            line = {k: _mean(tick_records, k) for k in sorted({k for r in tick_records for k in r})}
-            line.update({"Progress/tick": cur_tick, "Progress/kimg": cur_nimg / 1e3, "Progress/step": state.step,
-                         "Timing/sec_per_tick": sec_per_tick, "Timing/sec_per_kimg": sec_per_kimg,
-                         "Timing/total_sec": tick_end - start_time})
-            stats_file.write(json.dumps(line) + "\n")
-            stats_file.flush()
+            jsonl.write(collector, **{
+                "Progress/tick": cur_tick, "Progress/kimg": cur_nimg / 1e3,
+                "Timing/sec_per_tick": sec_per_tick, "Timing/sec_per_kimg": sec_per_kimg,
+                "Timing/total_sec": tick_end - start_time, "Progress/step": state.step,
+            })
             if verbose:
-                r1 = f" r1 {line['Loss/r1_penalty']:.4g}" if "Loss/r1_penalty" in line else ""  # only ticks that ran R1
+                # only ticks that ran R1 have its penalty
+                r1 = f" r1 {collector.mean('Loss/r1_penalty'):.4g}" if "Loss/r1_penalty" in collector.names() else ""
                 print(f"tick {cur_tick:<5d} kimg {cur_nimg / 1e3:<8.3f} step {state.step:<6d} "
                       f"time {tick_end - start_time:<8.1f}s sec/kimg {sec_per_kimg:<8.2f} "
-                      f"augment {line['Progress/augment_p']:.3f} G/loss {line['Loss/G/loss']:.3f} "
-                      f"D/loss {line['Loss/D/loss']:.3f}{r1}", flush=True)
+                      f"augment {collector.mean('Progress/augment_p'):.3f} G/loss {collector.mean('Loss/G/loss'):.3f} "
+                      f"D/loss {collector.mean('Loss/D/loss'):.3f}{r1}", flush=True)
             if grids is not None and (done or cur_tick % img_ticks == 0):
                 grids.save(state.G_ema, f"{cur_nimg // 1000:06d}")
             # the JAX loop's cadence; the port also saves a run that ends in tick 0
             if done or (snap_ticks and cur_tick > 0 and cur_tick % snap_ticks == 0):
                 _save_snapshot(run_dir, state, config, cur_nimg, verbose)
             cur_tick += 1
-            tick_start_nimg, tick_start_time, tick_records = cur_nimg, time.time(), []
+            tick_start_nimg, tick_start_time = cur_nimg, time.time()
             if done:
                 break
     return trainer, state, records

@@ -249,11 +249,14 @@ def test_cli_test_512_serves_the_fixture_on_cpu(tmp_path):
         cli.main(["--network", snap, "--synthetic", "1", "--outdir", str(tmp_path), "--device", "cpu"])
 
 
-def test_cli_test_512_refusals_and_resize(tmp_path, monkeypatch):
+def test_cli_test_512_refusals_and_resize(tmp_path, monkeypatch, capsys):
     snap = _snapshot(tmp_path, **THIN)
     base = ["--network", snap, "--synthetic", "2", "--outdir", str(tmp_path / "out"), "--device", "cpu"]
-    with pytest.raises(SystemExit, match="§A 8"):
-        cli512.main(base + ["--quant", "int8"])
+    # int8 serving: calibrated on the one batch of a synthetic pair, then served
+    written = cli512.main(["--network", snap, "--synthetic", "1", "--outdir", str(tmp_path / "int8"),
+                           "--device", "cpu", "--quant", "int8_static"])
+    assert len(written) == 1 and _read_png(written[0]).shape == (256, 3 * 160, 3)
+    assert "calibrated int8 activation scales on 1 batches" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="§A 11"):
         cli512.main(base + ["--dp"])
     full = GeneratorFull(img_resolution=256, channel_base=512, channel_max=32)

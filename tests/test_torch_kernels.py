@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions: the three
 routing kernels (norm_warp at 4 and 8 channels, composite, denorm_warp with
-both borders) and the two FIR resampling kernels (up2, down2); norm_warp and
+both borders), the two FIR resampling kernels (up2, down2) and the int8
+convolution of int8 serving (int8_conv, bit for bit); norm_warp and
 composite also on the routing operands of the real fixture pairs
 (tests/fixtures/upt_mini, decoded by the port without PIL).
 
@@ -555,7 +556,7 @@ def test_fir_wrappers_check_cuda_inputs(cuda_device):
 
 
 def test_registry_holds_every_kernel_once():
-    assert sorted(ck.KERNELS) == ["composite", "denorm_warp", "down2", "norm_warp", "up2"]
+    assert sorted(ck.KERNELS) == ["composite", "denorm_warp", "down2", "int8_conv", "norm_warp", "up2"]
     for k in ck.KERNELS.values():
         assert os.path.exists(k.source_path), k.source
 
@@ -726,3 +727,55 @@ def test_composite_kernel_skipped_hand_part_writes_zero(cuda_device):
     _, h = _composite_exact(args)
     assert not h[~hand_live].any(), "a skipped hand part must leave a zero mask"
     assert not h[1, 1].any(), "an invalid hand part must leave a zero mask"
+
+
+# ------------------------------------------------------------------ int8_conv
+
+# (N, C, O, k, H, W, stride, (top, bottom, left, right), dilation): the generators' classes, and ragged
+# pixel / channel / K tails (O not a multiple of 64, C not a multiple of 4, K past one 64-byte step)
+INT8_CASES = {
+    "3x3": (2, 64, 64, 3, 16, 16, 1, (1, 1, 1, 1), 1),
+    "3x3_ragged": (3, 37, 70, 3, 13, 9, 1, (1, 1, 1, 1), 1),
+    "1x1_6ch": (2, 6, 64, 1, 20, 20, 1, (0, 0, 0, 0), 1),
+    "7x7_3ch": (2, 3, 64, 7, 24, 24, 1, (3, 3, 3, 3), 1),
+    "3x3_stride2": (2, 64, 128, 3, 33, 33, 2, (0, 0, 0, 0), 1),
+    "1x1_stride2": (2, 64, 128, 1, 31, 31, 2, (0, 0, 0, 0), 1),
+    "6x6_dilation2": (2, 32, 48, 6, 12, 10, 1, (3, 3, 3, 3), 2),
+    "3x3_512": (1, 512, 64, 3, 8, 8, 1, (1, 1, 1, 1), 1),
+    "3x3_c40_o200": (2, 40, 200, 3, 11, 13, 1, (1, 1, 1, 1), 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", ["per_sample", "scalar"])
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(INT8_CASES))
+def test_int8_conv_kernel_bit_exact(cuda_device, case, out, scale):
+    from pasta_gan_tpu_torch.ops import quant as tq
+
+    N, C, O, k, H, W, stride, (pt, pb, pl, pr), dil = INT8_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(len(case))
+    xq = torch.randint(-127, 128, (N, C, H, W), generator=g, device=cuda_device, dtype=torch.int8)
+    wq = torch.randint(-127, 128, (O, C, k, k), generator=g, device=cuda_device, dtype=torch.int8)
+    sx = (torch.rand((N, 1, 1, 1) if scale == "per_sample" else (), generator=g, device=cuda_device) * 0.1)
+    sw = torch.rand(O, generator=g, device=cuda_device) * 0.01
+    before = ck.INT8_CONV.launches
+    y = tq.int8_conv(xq, wq, sx, sw, stride, ((pt, pb), (pl, pr)), dil, out)
+    assert ck.INT8_CONV.launches == before + 1
+    yp = tq.int8_conv_reference(xq, wq, sx, sw, stride, ((pt, pb), (pl, pr)), dil, out)
+    torch.cuda.synchronize()
+    assert y.dtype == out and y.shape == yp.shape
+    torch.testing.assert_close(y, yp, rtol=0, atol=0)
+
+
+def test_int8_conv_refuses_what_the_kernel_does_not_take():
+    from pasta_gan_tpu_torch.ops import quant as tq
+
+    xq = torch.zeros(1, 4, 6, 6, dtype=torch.int8)
+    wq = torch.zeros(2, 4, 3, 3, dtype=torch.int8)
+    with pytest.raises(ValueError, match="out_dtype"):
+        tq.int8_conv(xq, wq, torch.ones(()), torch.ones(2), out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="stride 1"):
+        tq._int8_conv_kernel(xq, wq, torch.ones(()), torch.ones(2), 2, ((1, 1), (1, 1)), 2, torch.float32)
+    with pytest.raises(ValueError, match="scale"):
+        tq._int8_conv_kernel(xq, wq, torch.ones(3), torch.ones(2), 1, ((1, 1), (1, 1)), 1, torch.float32)
