@@ -72,7 +72,10 @@ Phases, each fatal on failure:
 8. Card against CPU: one fp32 training step (Gmain, Dmain, R1) at a thin
    width is held against the same step on the port's CPU path, without ADA,
    with the debug-percentile `bgc` pipe and with random draws (the pipe
-   draws on the host, so one seed gives both sides the same draws).
+   draws on the host, so one seed gives both sides the same draws), and
+   with style mixing (z_dim 8) and the contextual loss, then one Greg step;
+   `contextual_loss` on one relu1_2-sized pair ([1, 256, 256, 64]) on the
+   card against the CPU.
 9. Real-data phase (`real_data`, on the committed fixture tree
    tests/fixtures/upt_mini, whose MANIFEST.json holds the digests of PIL's
    decoded arrays and of the JAX package's `load_sample`, neither of which
@@ -116,6 +119,17 @@ Phases, each fatal on failure:
    memory; the card against the CPU (int8_static, full width, batch 2, fp32,
    the card's calibrated scales) within twice the forward's own move under
    a 1e-6 relative input change (measured on the card).
+12. Regularized training phase (`training_reg`, after the ADA phase):
+   `cli.train --aug noaug --pl_weight 2 --contextual_weight 1` at full width
+   for 5 steps at batch 32, Greg (path-length regularization, the synthesis
+   network's double backward, on 16 samples) at steps 0 and 4, R1 at step 0,
+   no grids; Greg's stats finite, pl_mean moved, G, D and G_ema moved.  It
+   prints Gmain+Dmain with the contextual loss, Greg and R1 times, the
+   contextual loss's device ms (one Gmain profiled with and without it), the
+   relu1_2 affinity term's time against its matmul bound, one Greg step's
+   launches and peak memory, and every (kernel, extend or pad, dtype, shape)
+   class of up2 and down2 that Greg launches, each held to its plain
+   version.
 Each path's launch counts are set to 0 just before it runs and read just
 after; each path must launch exactly its kernels (`PATH_KERNELS`).  The
 training phase also counts down2's launches by (pad, dtype, input shape) in
@@ -142,6 +156,9 @@ NEAR = 1e-5  # pixels whose plain mask value lies this close to the threshold ar
 FIR_F32_TOL = 1e-6  # the FIR kernels repeat the plain version's rounded operations in its order
 BF16_REL = 2.0 ** -7  # 2 ulp of bf16
 TRAIN_STEPS, TRAIN_BATCH = 4, 32
+# training_reg: Greg every 4 steps (g_reg_interval) from the first, so 5 steps run it twice; R1 on the first
+REG_STEPS = 5
+REG_ARGV = ["--aug", "noaug", "--pl_weight", "2", "--contextual_weight", "1"]
 ADA_P = 0.5  # the training_ada path's initial augment probability: about half the draws transform
 # card vs CPU training step (tests/test_torch_train.py's tolerances)
 LOSS_RTOL, GRAD_REL_L2, STEP_REL_L2 = 1e-4, 1e-3, 1e-2
@@ -165,7 +182,7 @@ SEPARATE = {"norm_warp", "denorm_warp", "up2", "down2"}
 INT8 = {"norm_warp", "composite", "up2", "int8_conv"}
 PATH_KERNELS = {"serving_full": FUSED, "serving_v18_fused": FUSED, "serving_v18_separate": SEPARATE,
                 "serving_512_fused": FUSED, "serving_512_separate": SEPARATE, "training": FUSED,
-                "training_ada": FUSED, "serving_real": FUSED, "training_real": FUSED,
+                "training_ada": FUSED, "training_reg": FUSED, "serving_real": FUSED, "training_real": FUSED,
                 "metrics_network": FUSED, "metrics_folder": set(), "metrics_ppl": FUSED,
                 "serving_int8_static": INT8, "serving_int8": INT8, "serving_v18_int8_static": INT8,
                 "serving_512_int8_static": INT8}
@@ -699,6 +716,29 @@ def fir_kernel_phase(torch, tag):
     return results
 
 
+def fir_check(torch, g, kind, arg, dt, shape):
+    """up2 (`arg` extend) or down2 (`arg` pad) through its wrapper on an input
+    of `shape` drawn from `g`, against its plain version on the card: fp32
+    within FIR_F32_TOL, bf16 within 2 ulp.  Returns (x, y, plain y, max abs
+    error)."""
+    from pasta_gan_tpu_torch.ops import upfirdn_kernels as uk
+
+    x = torch.randn(shape, generator=g, device="cuda").to(dt)
+    if kind == "up2":
+        y, yp = uk.up2(x, extend=arg), uk.up2_reference(x, arg)
+    else:
+        y, yp = uk.down2(x, pad=arg), uk.down2_reference(x, arg)
+    torch.cuda.synchronize()
+    assert y.shape == yp.shape and y.dtype == dt, (kind, y.shape, yp.shape)
+    err = float((y.float() - yp.float()).abs().max())
+    if dt == torch.float32:
+        assert err <= FIR_F32_TOL, f"{kind} fp32 disagrees with its plain version: {err}"
+    else:
+        assert torch.allclose(y.float(), yp.float(), rtol=BF16_REL, atol=1e-6), \
+            f"{kind} bf16 disagrees with its plain version beyond 2 ulp: {err}"
+    return x, y, yp, err
+
+
 def fir_case(torch, g, kind, arg, dt, shape, tag):
     """One FIR kernel case on an input of `shape` drawn from `g`: up2 (`arg`
     extend) or down2 (`arg` pad) against its plain version on the card (fp32
@@ -712,7 +752,7 @@ def fir_case(torch, g, kind, arg, dt, shape, tag):
     F = torch.nn.functional
     taps = torch.tensor([1.0, 3.0, 3.0, 1.0], device="cuda") / 8.0
     filt = torch.outer(taps, taps)
-    x = torch.randn(shape, generator=g, device="cuda").to(dt)
+    x, y, yp, err = fir_check(torch, g, kind, arg, dt, shape)
     C = shape[1]
     if kind == "up2":
         run = lambda: uk.up2(x, extend=arg)  # noqa: E731
@@ -728,15 +768,8 @@ def fir_case(torch, g, kind, arg, dt, shape, tag):
         library = lambda: F.conv2d(x, w, stride=2, padding=arg, groups=C)  # noqa: E731
         adjoint = lambda gr: uk.up2(gr, extend=1 - arg, gain=0.25)  # noqa: E731
         flops_per_out = 36
-    y, yp, yl = run(), plain(), library()
-    torch.cuda.synchronize()
-    assert y.shape == yp.shape == yl.shape and y.dtype == dt, (kind, y.shape, yp.shape, yl.shape)
-    err = float((y.float() - yp.float()).abs().max())
-    if dt == torch.float32:
-        assert err <= FIR_F32_TOL, f"{kind} fp32 disagrees with its plain version: {err}"
-    else:
-        assert torch.allclose(y.float(), yp.float(), rtol=BF16_REL, atol=1e-6), \
-            f"{kind} bf16 disagrees with its plain version beyond 2 ulp: {err}"
+    yl = library()
+    assert yl.shape == y.shape, (kind, y.shape, yl.shape)
     lib_err = float((yl.float() - yp.float()).abs().max())
     gr = torch.randn(y.shape, generator=g, device="cuda").to(dt)
     # <y, g> = <x, adjoint(g)>, the difference over ||y|| ||g|| (bf16 keeps 8 bits)
@@ -1460,8 +1493,9 @@ def check_grids(run_dir, n_samples, tag):
     print(f"image grids: {len(got)} PNGs decoded at their shapes ({', '.join(sorted(got))}) [{tag}]", flush=True)
 
 
-def run_cli_train(torch, ck, tag, tmp, path, argv, data=("--synthetic", "64"), n_samples=64, grids=True):
-    """cli.train at full width: TRAIN_STEPS steps at batch TRAIN_BATCH, bf16, R1
+def run_cli_train(torch, ck, tag, tmp, path, argv, data=("--synthetic", "64"), n_samples=64, grids=True,
+                  steps=TRAIN_STEPS):
+    """cli.train at full width: `steps` steps at batch TRAIN_BATCH, bf16, R1
     on the first, 64 synthetic samples (or `data`'s, `n_samples` of them),
     extra flags `argv`, the image grids every tick (`--img_snap 1`) or, with
     `grids` false, none (`--img_snap 0`).  Checks what every training path
@@ -1476,7 +1510,7 @@ def run_cli_train(torch, ck, tag, tmp, path, argv, data=("--synthetic", "64"), n
     ck.reset_launch_counts()
     t0 = time.perf_counter()
     out = cli_train.main(["--outdir", os.path.join(tmp, "runs"), *data, "--batch", str(TRAIN_BATCH),
-                          "--dtype", "bfloat16", "--seed", "0", "--kimg", str(TRAIN_STEPS * TRAIN_BATCH / 1000),
+                          "--dtype", "bfloat16", "--seed", "0", "--kimg", str(steps * TRAIN_BATCH / 1000),
                           "--img_snap", str(int(grids)), *argv])
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
@@ -1486,7 +1520,7 @@ def run_cli_train(torch, ck, tag, tmp, path, argv, data=("--synthetic", "64"), n
     print(f"cli.train {' '.join([*data, *argv])}: {state.step} steps at batch {TRAIN_BATCH} in {wall_s:.1f} s "
           f"(includes making the samples on the host); launches {launches}; peak {peak_gb:.2f} GB allocated [{tag}]",
           flush=True)
-    assert state.step == TRAIN_STEPS and len(records) == TRAIN_STEPS
+    assert state.step == steps and len(records) == steps
     assert "Loss/r1_penalty" in records[0], "R1 did not run on the first step"
     for r in records:
         bad = {k: v for k, v in r.items() if not math.isfinite(v)}
@@ -1666,6 +1700,134 @@ def train_ada_phase(torch, ck, tag, tmp):
     torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = False
     return launches
+
+
+def train_reg_phase(torch, ck, tag, tmp):
+    """The training_reg path: cli.train at full width with Greg (`--pl_weight
+    2`, every 4 steps from the first, on the first 16 samples of the batch)
+    and the contextual loss (`--contextual_weight 1`, the He-initialized
+    VGG19), `--aug noaug`, REG_STEPS steps at batch 32, no grids.  Greg's
+    stats must be finite and pl_mean must move (run_cli_train checks the
+    rest).  Prints Gmain+Dmain with the contextual loss, Greg and R1 (each
+    run again, timed with a synchronise), the contextual loss's device ms
+    (one Gmain under torch.profiler with and without it), its relu1_2
+    affinity term at batch 4 against its matmul bound, and one Greg step's
+    launches, peak memory and FIR classes, each class held to its plain
+    version (Greg's double backward gives up2 and down2 pads and extends that
+    the forward never launches).  Returns the launch counts of the run."""
+    import copy
+
+    from pasta_gan_tpu_torch.runtime.config import replace_nested
+    from pasta_gan_tpu_torch.train.losses import contextual_loss
+
+    out, launches = run_cli_train(torch, ck, tag, tmp, "training_reg", REG_ARGV, grids=False, steps=REG_STEPS)
+    trainer, state, records = out["trainer"], out["state"], out["records"]
+    cfg = trainer.config
+    assert cfg.loss.pl_weight == 2 and cfg.loss.contextual_weight == 1 and trainer.vgg is not None
+    greg_steps = [i for i, r in enumerate(records) if "Timing/Greg" in r]
+    assert greg_steps == list(range(0, REG_STEPS, cfg.g_reg_interval)), f"Greg ran at steps {greg_steps}"
+    pl_mean = float(state.pl_mean)
+    assert math.isfinite(pl_mean) and pl_mean != 0.0, f"pl_mean did not move: {pl_mean}"
+    assert all(r["Loss/G/contextual"] > 0 for r in records)
+    med = statistics.median
+    main_ms = [r["Timing/Gmain_Dmain"] * 1e3 for r in records[1:]]
+    data_ms = [r["Timing/data"] * 1e3 for r in records[1:]]
+    greg_run = [records[i]["Timing/Greg"] * 1e3 for i in greg_steps]
+    print(f"training_reg (full width, batch {TRAIN_BATCH}, bf16, contextual loss on, Greg at steps {greg_steps}): "
+          f"Gmain+Dmain median {med(main_ms):.1f} ms (steps 2-{REG_STEPS}: {', '.join(f'{t:.1f}' for t in main_ms)}; "
+          f"step 1 {records[0]['Timing/Gmain_Dmain'] * 1e3:.1f}); Greg in the run "
+          f"{', '.join(f'{t:.1f}' for t in greg_run)} ms; R1 in the run "
+          f"{records[0]['Timing/Dreg'] * 1e3:.1f} ms; pl_penalty {[records[i]['Loss/pl_penalty'] for i in greg_steps]}, "
+          f"pl_mean {pl_mean:.6g}; contextual {[round(r['Loss/G/contextual'], 4) for r in records]} [{tag}]", flush=True)
+
+    batch = train_batch(torch)
+    greg_ms, r1_ms = [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, st = trainer.g_pl_step(state, batch)
+        float(st["Loss/G/reg"])
+        greg_ms.append((time.perf_counter() - t0) * 1e3)
+        assert all(math.isfinite(float(v)) for v in st.values()), st
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, st = trainer.d_r1_step(state, batch)
+        float(st["Loss/r1_penalty"])
+        r1_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ck.reset_launch_counts()
+    trainer.g_pl_step(state, batch)
+    torch.cuda.synchronize()
+    greg_launches, greg_peak = ck.launch_counts(), torch.cuda.max_memory_allocated() / 1e9
+    assert greg_launches["up2"] > 0 and greg_launches["down2"] > 0, f"Greg launched {greg_launches}"
+    step_ms = med(data_ms) + med(main_ms) + med(greg_ms) / cfg.g_reg_interval + med(r1_ms) / cfg.d_reg_interval
+    print(f"training_reg Greg (batch {TRAIN_BATCH // cfg.loss.pl_batch_shrink} of {TRAIN_BATCH}): "
+          f"{', '.join(f'{t:.1f}' for t in greg_ms)} ms; R1 {', '.join(f'{t:.1f}' for t in r1_ms)} ms; one Greg step's "
+          f"launches {greg_launches}, peak {greg_peak:.2f} GB allocated; sec/kimg {step_ms / TRAIN_BATCH:.3f} (data + "
+          f"Gmain+Dmain + Greg/{cfg.g_reg_interval} + R1/{cfg.d_reg_interval}, medians) [{tag}]", flush=True)
+    classes = fir_classes(torch, lambda: trainer.g_pl_step(state, batch))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    errs = {k: fir_check(torch, g, k[0], k[1], dtypes[k[2]], k[3])[3] for k in sorted(classes)}
+    print(f"Greg's FIR launches by (kernel, extend or pad, dtype, input shape), {sum(classes.values())} in "
+          f"{len(classes)} classes, each held to its plain version (max abs error): "
+          + ", ".join(f"{k}: {n}x {errs[k]:.3g}" for k, n in sorted(classes.items())) + f" [{tag}]", flush=True)
+    assert {k[:2] for k in classes} >= {("up2", 0), ("up2", 1), ("down2", 0), ("down2", 1)}, sorted(classes)
+
+    # the contextual loss's share of one Gmain: the same Gmain with and without it
+    g_params = list(state.G.parameters())
+    plain = copy.copy(trainer)
+    plain.config = replace_nested(cfg, **{"loss.contextual_weight": 0.0})
+    gmain = {}
+    for label, t in (("with", trainer), ("without", plain)):
+        gmain[label] = device_profile(torch, lambda: t._grads_with_accum(
+            lambda b: t.g_loss_fn(state.G, state.D, b), g_params, batch), iters=1, top=8)
+    (dev_with, ops_with, top), (dev_without, ops_without, _) = gmain["with"], gmain["without"]
+    ctx_ms = None if dev_with is None or dev_without is None else dev_with - dev_without
+    print(f"training_reg one Gmain (batch {TRAIN_BATCH}) under torch.profiler: device "
+          f"{'not measured' if dev_with is None else f'{dev_with:.1f} ms'} with the contextual loss, "
+          f"{'not measured' if dev_without is None else f'{dev_without:.1f} ms'} without; the contextual loss "
+          f"{'not measured' if ctx_ms is None else f'{ctx_ms:.1f} device ms'}; {ops_with:.0f} against "
+          f"{ops_without:.0f} device ops [{tag}]", flush=True)
+    for op, op_ms, n in top:
+        print(f"    {op_ms:9.3f} ms {n:7.1f}x  {op[:100]}", flush=True)
+
+    # the relu1_2 affinity term alone, forward and backward, at batch 4 (its cost is linear in the batch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, hw, c = 4, 256 * 256, 64
+    fx = torch.relu(torch.randn((n, 256, 256, c), generator=gen, device="cuda")).requires_grad_(True)
+    fy = torch.relu(torch.randn((n, 256, 256, c), generator=gen, device="cuda"))
+    fwd_ms = cuda_time_ms(torch, lambda: contextual_loss(fx, fy), iters=2, warmup=1)[1]
+    both_ms = cuda_time_ms(torch, lambda: torch.autograd.grad(contextual_loss(fx, fy), fx), iters=1, warmup=1)[1]
+    bound_fwd = n * 2 * hw * hw * c / PEAK_FP32_FLOPS * 1e3
+    print(f"contextual_loss at relu1_2 ([{n}, 256, 256, {c}] fp32, H*W = {hw}): forward {fwd_ms:.1f} ms, forward + "
+          f"backward {both_ms:.1f} ms (CUDA events, median of 2, one); {fwd_ms / n:.2f} / {both_ms / n:.2f} ms a sample; "
+          f"bound (the affinity products at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s fp32) {bound_fwd:.1f} / "
+          f"{2 * bound_fwd:.1f} ms [{tag}]", flush=True)
+    del fx, fy, out, trainer, state, batch, plain, g_params
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    return launches
+
+
+def contextual_card_vs_cpu(torch, tag):
+    """`contextual_loss` on one relu1_2-sized pair ([1, 256, 256, 64], fp32,
+    TF32 off) on the card against the CPU: its 64 chunks of 1024 query rows
+    at the real H*W, within LOSS_RTOL."""
+    from pasta_gan_tpu_torch.train.losses import contextual_loss
+
+    g = torch.Generator().manual_seed(0)
+    x, y = (torch.relu(torch.randn((1, 256, 256, 64), generator=g)) for _ in range(2))
+    t0 = time.perf_counter()
+    v_cpu = float(contextual_loss(x, y))
+    cpu_s = time.perf_counter() - t0
+    v_gpu = float(contextual_loss(x.cuda(), y.cuda()))
+    rel = abs(v_gpu - v_cpu) / abs(v_cpu)
+    print(f"contextual_loss card vs CPU ([1, 256, 256, 64] fp32): card {v_gpu:.8g}, CPU {v_cpu:.8g} (CPU {cpu_s:.1f} "
+          f"s), relative {rel:.3g} (limit {LOSS_RTOL}) [{tag}]", flush=True)
+    assert math.isfinite(v_gpu) and rel <= LOSS_RTOL, f"contextual_loss on the card differs: {v_gpu} vs {v_cpu}"
 
 
 def array_digest(a):
@@ -1855,7 +2017,7 @@ def last_tick_sec_per_kimg(run_dir):
         return json.loads(f.read().splitlines()[-1])["Timing/sec_per_kimg"]
 
 
-def train_card_vs_cpu(torch, tag, label="noaug", ada=None):
+def train_card_vs_cpu(torch, tag, label="noaug", ada=None, reg=False):
     """One fp32 training step (Gmain and Dmain gradients, train_step, d_r1_step)
     at a thin width (channel_base 512, channel_max 32, batch 4, noise off,
     no VGG, Adam eps 1e-3 as in tests/test_torch_train.py) on the card against
@@ -1869,17 +2031,81 @@ def train_card_vs_cpu(torch, tag, label="noaug", ada=None):
     random ADA draws, and without ADA on the stickman-repaired synthetic
     batch): so Dmain's stats are compared from the gradient pass on the same
     weights, R1 runs from the same state on both sides, and the steps
-    themselves are held to STEP_REL_L2."""
+    themselves are held to STEP_REL_L2.
+
+    `reg`: the same step with z_dim 8 and style mixing at probability 1
+    (both trainers draw z, the mixing z and the cutoff on the host from the
+    same seed) and the contextual loss (weight 1, a He-initialized VGG19
+    carried to both sides, taps relu3_2 ... relu5_2: the relu1_2 and relu2_2
+    terms' 65536 x 65536 and 16384 x 16384 affinities a sample take minutes
+    on the CPU, and `contextual_card_vs_cpu` holds the relu1_2 size), then
+    one Greg step
+    (z_dim 0, pl_weight 2, one pl_noise on both sides) from the same state:
+    its stats and pl_mean within LOSS_RTOL, G's step within STEP_REL_L2."""
+    import copy
+
+    from pasta_gan_tpu_torch.runtime.config import from_preset, replace_nested
+    from pasta_gan_tpu_torch.train import vgg as tvgg
+
+    base = replace_nested(from_preset("fashion", batch=4), **{
+        "model.channel_base": 512, "model.channel_max": 32, "model.use_noise": False, "loss.vgg_weight": 0.0,
+        "ada.enabled": ada is not None, "ada.initial_p": ADA_P, "g_opt.eps": 1e-3, "d_opt.eps": 1e-3})
+    cfg, vgg, taps = base, (None, None), tvgg.CONTEXTUAL_TAPS
+    if reg:
+        cfg = replace_nested(base, **{"model.z_dim": 8, "loss.style_mixing_prob": 1.0, "loss.contextual_weight": 1.0})
+        vgg_cpu = tvgg.init_vgg19(torch.Generator().manual_seed(0), "cpu")
+        vgg = (vgg_cpu, copy.deepcopy(vgg_cpu).cuda())
+        tvgg.CONTEXTUAL_TAPS = taps[2:]
+    try:
+        _card_vs_cpu_steps(torch, tag, label, cfg, ada, vgg)
+    finally:
+        tvgg.CONTEXTUAL_TAPS = taps
+    if reg:
+        _card_vs_cpu_greg(torch, tag, replace_nested(base, **{"loss.pl_weight": 2.0}))
+
+
+def _card_vs_cpu_greg(torch, tag, cfg):
+    """One Greg step on the card and on the CPU from the same state and pl_noise (see train_card_vs_cpu)."""
     import copy
 
     from pasta_gan_tpu_torch.data.dataset import SyntheticUvitonDataset, collate, erasure_draws, prepare_train_batch
-    from pasta_gan_tpu_torch.runtime.config import from_preset, replace_nested
+    from pasta_gan_tpu_torch.train.step import GANTrainer
+
+    ds = SyntheticUvitonDataset(num_samples=4, seed=5)
+    b_cpu = prepare_train_batch(collate([ds[i] for i in range(4)]), device="cpu",
+                                draws=erasure_draws(4, torch.Generator().manual_seed(2)))
+    tc, tg = GANTrainer(cfg, device="cpu"), GANTrainer(cfg, device="cuda")
+    sc = tc.init_state(torch.Generator().manual_seed(1))
+    sg = tg.init_state(G=copy.deepcopy(sc.G), D=copy.deepcopy(sc.D))
+    sc.pl_mean.fill_(0.05)
+    sg.pl_mean.fill_(0.05)
+    n = 4 // cfg.loss.pl_batch_shrink
+    noise = torch.randn((n, 256, 256, 3), generator=torch.Generator().manual_seed(3)) / 256.0
+    before = {k: v.clone() for k, v in sc.G.state_dict().items()}
+    sc, st_c = tc.g_pl_step(sc, b_cpu, pl_noise=noise)
+    sg, st_g = tg.g_pl_step(sg, {k: v.cuda() for k, v in b_cpu.items()}, pl_noise=noise.cuda())
+    for k, v in {**st_c, "pl_mean": sc.pl_mean}.items():
+        card = float(sg.pl_mean if k == "pl_mean" else st_g[k])
+        assert abs(card - float(v)) <= LOSS_RTOL * abs(float(v)) + 1e-6, f"Greg {k}: card {card} vs CPU {float(v)}"
+    sd_c, sd_g = sc.G.state_dict(), sg.G.state_dict()
+    dc = torch.cat([(sd_c[k] - before[k]).flatten() for k in sorted(sd_c)])
+    dg = torch.cat([(sd_g[k].cpu() - before[k]).flatten() for k in sorted(sd_c)])
+    err = float((dg - dc).norm() / dc.norm())
+    print(f"card vs CPU Greg step (fp32, thin, batch 4 -> {n}, pl_mean 0.05): pl_penalty card "
+          f"{float(st_g['Loss/pl_penalty']):.6g} CPU {float(st_c['Loss/pl_penalty']):.6g}, pl_mean card "
+          f"{float(sg.pl_mean):.6g} CPU {float(sc.pl_mean):.6g}, G step relative L2 {err:.3g} (limit {STEP_REL_L2}) "
+          f"[{tag}]", flush=True)
+    assert err <= STEP_REL_L2, f"Greg's G step on the card differs from the CPU's: {err}"
+
+
+def _card_vs_cpu_steps(torch, tag, label, cfg, ada, vgg):
+    """The step comparison of train_card_vs_cpu for config `cfg`; `vgg`: (CPU, card) networks or Nones."""
+    import copy
+
+    from pasta_gan_tpu_torch.data.dataset import SyntheticUvitonDataset, collate, erasure_draws, prepare_train_batch
     from pasta_gan_tpu_torch.train.augment import AugmentPipe
     from pasta_gan_tpu_torch.train.step import GANTrainer
 
-    cfg = replace_nested(from_preset("fashion", batch=4), **{
-        "model.channel_base": 512, "model.channel_max": 32, "model.use_noise": False, "loss.vgg_weight": 0.0,
-        "ada.enabled": ada is not None, "ada.initial_p": ADA_P, "g_opt.eps": 1e-3, "d_opt.eps": 1e-3})
     augment_fn = None
     if ada == "debug":
         pipe = AugmentPipe.from_spec("bgc", fast_geom=True)
@@ -1888,8 +2114,8 @@ def train_card_vs_cpu(torch, tag, label="noaug", ada=None):
     b_cpu = prepare_train_batch(collate([ds[i] for i in range(4)]), device="cpu",
                                 draws=erasure_draws(4, torch.Generator().manual_seed(2)))
     b_gpu = {k: v.cuda() for k, v in b_cpu.items()}
-    tc = GANTrainer(cfg, device="cpu", augment_fn=augment_fn)
-    tg = GANTrainer(cfg, device="cuda", augment_fn=augment_fn)
+    tc = GANTrainer(cfg, vgg=vgg[0], device="cpu", augment_fn=augment_fn)
+    tg = GANTrainer(cfg, vgg=vgg[1], device="cuda", augment_fn=augment_fn)
     sc = tc.init_state(torch.Generator().manual_seed(1))
     sg = tg.init_state(G=copy.deepcopy(sc.G), D=copy.deepcopy(sc.D))
 
@@ -1937,7 +2163,9 @@ def train_card_vs_cpu(torch, tag, label="noaug", ada=None):
     print(f"card vs CPU training step, {label} (fp32, thin, batch 4): worst gradient difference {worst:.3g} of its "
           f"allowance ({GRAD_REL_L2} relative L2, or 1e-6 of the largest gradient's norm), step relative L2 "
           f"{', '.join(f'{k} {v:.3g}' for k, v in step_errs.items())} (limit {STEP_REL_L2}), r1 penalty card "
-          f"{stats[1]['Loss/r1_penalty']:.6g} CPU {stats[0]['Loss/r1_penalty']:.6g} [{tag}]", flush=True)
+          f"{stats[1]['Loss/r1_penalty']:.6g} CPU {stats[0]['Loss/r1_penalty']:.6g}"
+          + (f", contextual card {stats[1]['Loss/G/contextual']:.6g} CPU {stats[0]['Loss/G/contextual']:.6g}"
+             if cfg.loss.contextual_weight > 0 else "") + f" [{tag}]", flush=True)
 
 
 def random_detectors(torch, tmp):
@@ -2239,11 +2467,14 @@ def main():
         launches.update(int8_launches)
         launches["training"] = train_phase(torch, ck, tag, tmp)
         launches["training_ada"] = train_ada_phase(torch, ck, tag, tmp)
+        launches["training_reg"] = train_reg_phase(torch, ck, tag, tmp)
         launches.update(real_data_phase(torch, ck, tag, tmp))
         launches.update(metrics_phase(torch, ck, tag, tmp))
     train_card_vs_cpu(torch, tag)
     train_card_vs_cpu(torch, tag, "ADA debug percentile", ada="debug")
     train_card_vs_cpu(torch, tag, "ADA random draws", ada="random")
+    train_card_vs_cpu(torch, tag, "style mixing and the contextual loss", reg=True)
+    contextual_card_vs_cpu(torch, tag)
 
     kernels = [
         {"name": name, "route": "cuda", "source": f"pasta_gan_tpu_torch/csrc/{ck.KERNELS[name].source}",

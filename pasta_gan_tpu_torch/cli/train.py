@@ -4,7 +4,9 @@ Trains the 256px GeneratorFull against the resnet Discriminator on one card,
 with ADA augmentation in front of D by default (`--aug ada`: the `bgc` pipe,
 the two-pass affine warp, stacked D calls, p adjusted towards `--target`),
 bf16 compute over fp32 master weights by default, and the losses of record
-(L1 40, VGG 40, mask 20, R1 gamma from the preset, R1 every 16 steps):
+(L1 40, VGG 40, mask 20, R1 gamma from the preset, R1 every 16 steps);
+`--pl_weight` adds path-length regularization every 4 steps and
+`--contextual_weight` the contextual loss on the finetune image:
 
   python -m pasta_gan_tpu_torch.cli.train --outdir ./runs --data /path/to/UPT \\
       --cfg fashion --batch 32 --kimg 100 --workers 3 --snap 50 --aug ada
@@ -30,7 +32,10 @@ G_ema (network-snapshot-<kimg>.pt, servable by `pasta_gan_tpu_torch.cli.test
 tryon_grid<kimg>.png every `--img_snap` ticks from tick 0 and at the end;
 `--img_snap 0` writes none).  Without
 `--vgg_ckpt` (a torchvision vgg19 state_dict already on disk) the perceptual
-loss uses a He-initialized VGG19; nothing is downloaded.
+loss uses a He-initialized VGG19; nothing is downloaded.  The contextual
+loss runs only with that VGG loaded, as in the JAX package: with
+`--vgg_weight 0` it is off.  `-n/--dry-run` prints the resolved config and
+exits.
 """
 
 from __future__ import annotations
@@ -80,8 +85,10 @@ def main(argv=None):
     p.add_argument("--vgg_weight", type=float, default=40.0)
     p.add_argument("--mask_weight", type=float, default=20.0)
     p.add_argument("--gamma", type=float, default=None, help="R1 weight (default: the preset's)")
-    p.add_argument("--pl_weight", type=float, default=0.0)
-    p.add_argument("--contextual_weight", type=float, default=0.0)
+    p.add_argument("--pl_weight", type=float, default=0.0,
+                   help="path-length regularization weight (Greg every g_reg_interval steps)")
+    p.add_argument("--contextual_weight", type=float, default=0.0,
+                   help="contextual loss weight (needs the VGG, i.e. --vgg_weight > 0)")
     p.add_argument("--vgg_ckpt", default=None, help="torchvision vgg19 state_dict file on disk")
     p.add_argument("--resume", default=None, help="a train-state checkpoint of this package (train-state-*.pt)")
     p.add_argument("--seed", type=int, default=0)
@@ -91,21 +98,12 @@ def main(argv=None):
     p.add_argument("--kimg_per_tick", type=float, default=None, help="thousands of images a tick (default: the preset's)")
     p.add_argument("--workers", type=int, default=None, help="host decode threads (default: the preset's)")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    p.add_argument("-n", "--dry-run", action="store_true",
+                   help="print the resolved config and exit before any data, device or VGG is touched")
     args = p.parse_args(argv)
 
-    if args.pl_weight > 0:
-        raise SystemExit("--pl_weight > 0: path-length regularization (g_pl_step) is a later slice of the port")
-    if args.contextual_weight > 0:
-        raise SystemExit("--contextual_weight > 0: the contextual loss is a later slice of the port")
-    if args.synthetic <= 0 and args.data is None:
-        raise SystemExit("--data DIR or --synthetic N is required")
-    device = resolve_device(args.device)
-
-    from ..data.dataset import SyntheticUvitonDataset, UvitonDatasetFull
-    from ..runtime.config import from_preset, replace_nested
+    from ..runtime.config import from_preset, replace_nested, to_json
     from ..train.augment import AUGPIPE_SPECS
-    from ..train.loop import training_loop
-    from ..train.vgg import init_vgg19, load_torch_vgg19
 
     config = from_preset(args.cfg, batch=args.batch)
     overrides = {
@@ -137,6 +135,18 @@ def main(argv=None):
             raise SystemExit(f"--accum {args.accum} must divide --batch {config.batch_size}")
         overrides["accum_steps"] = args.accum
     config = replace_nested(config, **overrides)
+    if args.dry_run:
+        print("Resolved training config:")
+        print(to_json(config))
+        print("\nDry run: exiting (reference --dry-run semantics).")
+        return None
+    if args.synthetic <= 0 and args.data is None:
+        raise SystemExit("--data DIR or --synthetic N is required")
+    device = resolve_device(args.device)
+
+    from ..data.dataset import SyntheticUvitonDataset, UvitonDatasetFull
+    from ..train.loop import training_loop
+    from ..train.vgg import init_vgg19, load_torch_vgg19
 
     vgg = None
     if config.loss.vgg_weight > 0:

@@ -3,9 +3,11 @@
 One process, one card: host samples come from `InfiniteLoader` in the JAX
 loader's order (per-epoch permutations from `(seed, epoch)`, batches built
 ahead by worker processes), are routed on the card by `prepare_train_batch`,
-then Gmain + Dmain (`train_step`) every step and R1 (`d_r1_step`) every
-`d_reg_interval` steps, from the first.  Each step's stats and phase times
-go into a `Collector`; each tick prints one stats line from it and appends
+then Gmain + Dmain (`train_step`) every step, Greg (`g_pl_step`) every
+`g_reg_interval` steps when `pl_weight > 0`, and R1 (`d_r1_step`) every
+`d_reg_interval` steps, each from the first, in that order.  Each step's
+stats and phase times go into a `Collector`; each tick prints one stats
+line from it and appends
 one row to `stats.jsonl` through `JsonlLogger`: {name: {num, mean, std}},
 `timestamp`, the JAX loop's flat extras (`Progress/tick`, `Progress/kimg`,
 `Timing/sec_per_tick`, `Timing/sec_per_kimg`, `Timing/total_sec`) and
@@ -279,7 +281,8 @@ def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg
     """Train until `total_kimg` (default: the config's) thousand images.
 
     Returns (trainer, state, records): one record per step with its stats
-    and phase times ("Timing/data", "Timing/Gmain_Dmain", "Timing/Dreg")."""
+    and phase times ("Timing/data", "Timing/Gmain_Dmain", "Timing/Greg",
+    "Timing/Dreg")."""
     device = torch.device(device)
     os.makedirs(run_dir, exist_ok=True)
     with open(os.path.join(run_dir, "training_options.json"), "w") as f:
@@ -295,6 +298,7 @@ def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg
 
     data_gen = torch.Generator().manual_seed(config.random_seed + 1)
     d_reg_interval = config.d_reg_interval or 0
+    g_reg_interval = (config.g_reg_interval or 0) if config.loss.pl_weight > 0 else 0
     snap_ticks, img_ticks = config.network_snapshot_ticks, config.image_snapshot_ticks
     cur_nimg = state.step * config.batch_size
     tick_start_nimg, cur_tick, batch_idx = cur_nimg, 0, 0
@@ -316,10 +320,16 @@ def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg
             t_main = time.time()
             rec["Timing/data"] = t_data - t0
             rec["Timing/Gmain_Dmain"] = t_main - t_data
+            if g_reg_interval and batch_idx % g_reg_interval == 0:
+                t1 = time.time()
+                state, pl_stats = trainer.g_pl_step(state, batch)
+                rec.update({k: float(v) for k, v in pl_stats.items()})
+                rec["Timing/Greg"] = time.time() - t1
             if d_reg_interval and batch_idx % d_reg_interval == 0:
+                t1 = time.time()
                 state, r1_stats = trainer.d_r1_step(state, batch)
                 rec.update({k: float(v) for k, v in r1_stats.items()})
-                rec["Timing/Dreg"] = time.time() - t_main
+                rec["Timing/Dreg"] = time.time() - t1
             records.append(rec)
             collector.report_dict(rec)
             cur_nimg += config.batch_size
@@ -339,8 +349,9 @@ def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg
                 "Timing/total_sec": tick_end - start_time, "Progress/step": state.step,
             })
             if verbose:
-                # only ticks that ran R1 have its penalty
-                r1 = f" r1 {collector.mean('Loss/r1_penalty'):.4g}" if "Loss/r1_penalty" in collector.names() else ""
+                # only ticks that ran R1 or Greg have their penalties
+                r1 = "".join(f" {name} {collector.mean(key):.4g}" for name, key in (
+                    ("pl", "Loss/pl_penalty"), ("r1", "Loss/r1_penalty")) if key in collector.names())
                 print(f"tick {cur_tick:<5d} kimg {cur_nimg / 1e3:<8.3f} step {state.step:<6d} "
                       f"time {tick_end - start_time:<8.1f}s sec/kimg {sec_per_kimg:<8.2f} "
                       f"augment {collector.mean('Progress/augment_p'):.3f} G/loss {collector.mean('Loss/G/loss'):.3f} "

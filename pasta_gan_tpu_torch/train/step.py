@@ -5,11 +5,19 @@ Phases of the reference's fashion config, as in the JAX package:
 * `train_step`  Gmain, then Dmain on the *updated* G, then G_ema, w_avg and
                 the ADA controller;
 * `d_r1_step`   Dreg: R1 with the lazy-regularization gain d_reg_interval,
-                through the ADA pipe at the state's p.
+                through the ADA pipe at the state's p;
+* `g_pl_step`   Greg: path-length regularization on a `pl_batch_shrink`'d
+                batch, with the lazy-regularization gain g_reg_interval;
+                the gradient of G's image with respect to ws is taken with
+                `create_graph=True`, so the step runs the synthesis
+                network's double backward.
 
-Greg (path length, weight 0 in the config of record) and the contextual
-loss (weight 0) are later slices: the trainer refuses a config that asks for
-them.
+The contextual loss (`contextual_weight`) runs in Gmain when a VGG is
+loaded, as in the JAX package.  With z_dim > 0, `run_G` draws z and, at
+`style_mixing_prob`, mixes a second mapping from a cutoff on; its draws come
+from a CPU generator of the trainer (`latent_draws`), so one seed gives the
+CPU and the card the same draws.  `unsupported_features` lists what the
+trainer refuses.
 
 ADA (train/augment.py) runs in front of every D call when `config.ada` is
 enabled, or when an `augment_fn(images, p, generator)` is given (the tests
@@ -30,6 +38,7 @@ before each Adam update.  Batches are the NHWC dicts of
 from __future__ import annotations
 
 import copy
+import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -40,7 +49,7 @@ from ..nn.discriminator import Discriminator
 from ..runtime.config import TrainConfig, lazy_reg_scaling
 from . import losses
 from .state import TrainState
-from .vgg import VGG19Features, vgg_perceptual_loss
+from .vgg import VGG19Features, contextual_vgg_loss, vgg_perceptual_loss
 
 Batch = Dict[str, torch.Tensor]
 
@@ -51,16 +60,16 @@ def _scrub(grads: List[torch.Tensor], posinf: float) -> List[torch.Tensor]:
 
 
 def unsupported_features(config: TrainConfig) -> List[str]:
-    """What `config` asks for that this training path does not run yet."""
+    """What `config` asks for that the JAX package does not run either."""
     out = []
-    if config.loss.pl_weight > 0:
-        out.append("path-length regularization (pl_weight > 0; g_pl_step, a later slice)")
-    if config.loss.contextual_weight > 0:
-        out.append("the contextual loss (contextual_weight > 0; a later slice)")
-    if config.model.z_dim > 0:
-        out.append("z_dim > 0 (style mixing)")
     if config.model.freeze_layers:
-        out.append("freeze_layers > 0")
+        out.append("freeze_layers > 0: the JAX Discriminator records which layers are trainable "
+                   "(pasta_gan_tpu/nn/discriminator.py:39-49), but no optimizer mask reads it "
+                   "(pasta_gan_tpu/nn/layers.py:82-83), so JAX trains every layer")
+    if config.loss.pl_weight > 0 and config.model.z_dim > 0:
+        out.append("path-length regularization with z_dim > 0: JAX's Greg maps with z=None "
+                   "(pasta_gan_tpu/train/step.py:530), which its mapping refuses when z_dim > 0 "
+                   "(pasta_gan_tpu/nn/mapping.py:53-54)")
     return out
 
 
@@ -86,6 +95,9 @@ class GANTrainer:
                                                fast_geom=config.ada.fast_geom)
         self.augment_fn = augment_fn  # (images NHWC, p, generator) -> images
         self.augment_gen = torch.Generator().manual_seed(noise_seed)  # the pipe's draws, on the host
+        # z, the mixing z and the cutoff, on the host (a stream apart from the pipe's)
+        latent_seed = int(np.random.SeedSequence((noise_seed, 1)).generate_state(1)[0])
+        self.latent_gen = torch.Generator().manual_seed(latent_seed)
 
     # ------------------------------------------------------------- init
 
@@ -126,12 +138,36 @@ class GANTrainer:
 
     # ------------------------------------------------------------- forward helpers
 
-    def run_G(self, G: GeneratorFull, batch: Batch):
-        """Style/pose encode, map, synthesize (reference run_G).  Returns
-        (img, finetune_img, pred_parsing) NHWC, ws, w_raw and the style code."""
+    def latent_draws(self, n: int, num_ws: int) -> Optional[Dict]:
+        """run_G's draws for a batch of n, from `latent_gen`: None for z_dim 0;
+        else z [n, z_dim] ~ N(0, 1) and, with style_mixing_prob > 0, z2 like
+        it, a cutoff in [1, num_ws) and use_mix, true with style_mixing_prob
+        (one cutoff and coin for the batch, as in the JAX package)."""
+        z_dim, prob = self.config.model.z_dim, self.config.loss.style_mixing_prob
+        if z_dim <= 0:
+            return None
+        g = self.latent_gen
+        draws = {"z": torch.randn((n, z_dim), generator=g)}
+        if prob > 0:
+            draws["z2"] = torch.randn((n, z_dim), generator=g)
+            draws["cutoff"] = int(torch.randint(1, num_ws, (), generator=g))
+            draws["use_mix"] = bool(torch.rand((), generator=g) < prob)
+        return draws
+
+    def run_G(self, G: GeneratorFull, batch: Batch, draws: Optional[Dict] = None):
+        """Style/pose encode, map (and, for z_dim > 0, style mixing),
+        synthesize (reference run_G).  `draws` (tests) replaces
+        `latent_draws`.  Returns (img, finetune_img, pred_parsing) NHWC, ws,
+        w_raw and the style code."""
         stylecode, feats = G.encode_style(batch["style_input"], batch["retain"])
         pose_feat = G.encode_pose(batch["pose"])
-        ws, w_raw = G.map_ws(None, stylecode)
+        if draws is None:
+            draws = self.latent_draws(stylecode.shape[0], G.num_ws)
+        z = None if draws is None else draws["z"].to(stylecode.device)
+        ws, w_raw = G.map_ws(z, stylecode)
+        if draws is not None and "z2" in draws and draws["use_mix"]:
+            ws2, _ = G.map_ws(draws["z2"].to(stylecode.device), stylecode)
+            ws = torch.cat([ws[:, :draws["cutoff"]], ws2[:, draws["cutoff"]:]], dim=1)
         img, ft_img, parsing = G.synthesize(
             ws, pose_feat, cat_feats_dict(feats), batch["denorm_upper_img"], batch["denorm_lower_img"],
             batch["denorm_upper_mask"], batch["denorm_lower_mask"], noise_mode="random", generator=self.noise)
@@ -198,13 +234,16 @@ class GANTrainer:
                 real_feats = self.vgg(real)
             loss_vgg = vgg_perceptual_loss(self.vgg, img, y_feats=real_feats) * cfg.vgg_weight
             loss_vgg_ft = vgg_perceptual_loss(self.vgg, ft_img, y_feats=real_feats) * cfg.vgg_weight
+        loss_ctx = zero
+        if cfg.contextual_weight > 0 and self.vgg is not None:
+            loss_ctx = contextual_vgg_loss(self.vgg, ft_img, real) * cfg.contextual_weight
         total = ((loss_gan + loss_gan_ft) / 2 + (loss_l1 + loss_l1_ft) / 2 + (loss_vgg + loss_vgg_ft) / 2
-                 + loss_mask)
+                 + loss_mask + loss_ctx)
         stats = {
             "Loss/G/loss": loss_gan, "Loss/G/loss_finetune": loss_gan_ft,
             "Loss/G/L1": loss_l1, "Loss/G/L1_finetune": loss_l1_ft,
             "Loss/G/vgg": loss_vgg, "Loss/G/vgg_finetune": loss_vgg_ft,
-            "Loss/G/mask_loss": loss_mask, "Loss/G/contextual": zero,
+            "Loss/G/mask_loss": loss_mask, "Loss/G/contextual": loss_ctx,
             "Loss/scores/fake": gen_logits.mean(), "Loss/signs/fake": gen_logits.sign().mean(),
             "w_mean": w_raw.float().mean(dim=0),
         }
@@ -307,3 +346,34 @@ class GANTrainer:
         self._apply(state.d_opt, d_params, d_grads)
         stats["Loss/D/reg"] = stats["Loss/r1_penalty"] * scale
         return state, stats
+
+    def g_pl_step(self, state: TrainState, batch: Batch,
+                  pl_noise: Optional[torch.Tensor] = None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """Greg: path-length regularization on the first max(1, n //
+        pl_batch_shrink) samples, with the lazy-regularization gain; in
+        place.  `pl_noise` (tests) replaces the draw N(0, 1) / sqrt(H W) of
+        the image's shape."""
+        cfg = self.config
+        shrink = max(1, cfg.loss.pl_batch_shrink)
+        small = {k: v[: max(1, v.shape[0] // shrink)] for k, v in batch.items()}
+        gain = float(cfg.g_reg_interval or 1)
+        G = state.G
+        stylecode, feats = G.encode_style(small["style_input"], small["retain"])
+        pose_feat = G.encode_pose(small["pose"])
+        ws, _ = G.map_ws(None, stylecode)
+        img, _, _ = G.synthesize(
+            ws, pose_feat, cat_feats_dict(feats), small["denorm_upper_img"], small["denorm_lower_img"],
+            small["denorm_upper_mask"], small["denorm_lower_mask"], noise_mode="random", generator=self.noise)
+        if pl_noise is None:
+            pl_noise = torch.randn(img.shape, generator=self.noise, device=img.device) / math.sqrt(
+                img.shape[1] * img.shape[2])
+        (pl_grads,) = torch.autograd.grad((img.float() * pl_noise).sum(), ws, create_graph=True)
+        penalty, new_mean = losses.pl_penalty_from_grads(pl_grads, state.pl_mean, cfg.loss.pl_decay)
+        loss = penalty * cfg.loss.pl_weight * gain
+        g_params = list(G.parameters())
+        grads = torch.autograd.grad(loss, g_params, allow_unused=True)
+        # a parameter the image does not reach (the finetune and parsing heads) takes
+        # a zero gradient, so Adam's moments decay as they do in the JAX step
+        self._apply(state.g_opt, g_params, [torch.zeros_like(p) if g is None else g for g, p in zip(grads, g_params)])
+        state.pl_mean.copy_(new_mean.detach())
+        return state, {"Loss/pl_penalty": penalty.detach(), "Loss/G/reg": loss.detach()}

@@ -11,6 +11,10 @@ Weights: `load_torch_vgg19` reads a torchvision `vgg19` state_dict that is
 already on disk; nothing is downloaded.  Without one, `init_vgg19` draws a
 He-initialized network from a seeded generator: a structurally valid
 perceptual metric for smoke training, not the reference's.
+
+The contextual loss (`contextual_vgg_loss`) taps relu1_2 / relu2_2 /
+relu3_2 / relu4_2 / relu5_2 of the same network on caffe-style inputs (BGR,
+x 255, mean subtracted) and sums `losses.contextual_loss` over the taps.
 """
 
 from __future__ import annotations
@@ -21,11 +25,16 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from .losses import contextual_loss
+
 _VGG19_PLAN = [64, 64, "M", 128, 128, "M", 256, 256, 256, 256, "M", 512, 512, 512, 512, "M", 512, 512, 512, 512, "M"]
 NUM_CONVS = 14  # conv1_1 .. conv5_2
 # conv indices (0-based) after whose relu the perceptual loss taps features
 PERCEPTUAL_TAPS = (0, 2, 4, 8, 12)
 VGG_SLICE_WEIGHTS = (1.0 / 32, 1.0 / 16, 1.0 / 8, 1.0 / 4, 1.0)
+# relu1_2, relu2_2, relu3_2, relu4_2, relu5_2: the contextual loss's taps
+CONTEXTUAL_TAPS = (1, 3, 5, 9, 13)
+_CAFFE_BGR_MEAN = (0.40760392, 0.45795686, 0.48501961)
 
 
 def _plan_layers(n_convs: int):
@@ -102,3 +111,23 @@ def vgg_perceptual_loss(vgg: VGG19Features, x: torch.Tensor, y: Optional[torch.T
     for w, a, b in zip(VGG_SLICE_WEIGHTS, fx, y_feats):
         loss = loss + w * (a - b).abs().mean()
     return loss
+
+
+def vgg_preprocess_bgr_caffe(x: torch.Tensor) -> torch.Tensor:
+    """[-1, 1] RGB NHWC -> caffe-style BGR x 255 with the mean subtracted, in
+    x's dtype (the contextual loss's VGG input)."""
+    x = (x + 1.0) / 2.0
+    mean = torch.tensor(_CAFFE_BGR_MEAN, dtype=x.dtype, device=x.device)
+    return (x.flip(-1) - mean) * 255.0
+
+
+def contextual_vgg_loss(vgg: VGG19Features, x: torch.Tensor, y: torch.Tensor, h: float = 0.1) -> torch.Tensor:
+    """The CX loss of image x against the constant target y (NHWC), summed
+    over the CONTEXTUAL_TAPS feature maps."""
+    fx = vgg(vgg_preprocess_bgr_caffe(x), taps=CONTEXTUAL_TAPS)
+    with torch.no_grad():
+        fy = vgg(vgg_preprocess_bgr_caffe(y), taps=CONTEXTUAL_TAPS)
+    total = 0.0
+    for a, b in zip(fx, fy):
+        total = total + contextual_loss(a.permute(0, 2, 3, 1), b.permute(0, 2, 3, 1), h=h)
+    return total

@@ -109,7 +109,11 @@ def draw_variables(shapes, seed):
 @pytest.fixture(scope="module")
 def pair():
     """(JAX trainer, JAX state, port trainer, port state, batch) on the same weights."""
-    jcfg = jax_tiny_config()
+    return make_pair(jax_tiny_config())
+
+
+def make_pair(jcfg):
+    """`pair` for the JAX config `jcfg` (the port's config translated from it)."""
     vgg_vars = jax.tree_util.tree_map(np.asarray, jax_init_vgg19(jax.random.PRNGKey(3), image_size=16))
     jt = JaxGANTrainer(jcfg, vgg_params=vgg_vars)
     b_np = numpy_batch()

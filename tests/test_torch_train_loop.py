@@ -7,8 +7,9 @@
   CPU, runs R1 on the first, writes a servable network snapshot and a
   train-state checkpoint, and `--resume` continues from it
   (tests/test_torch_train_ada_cli.py does the same with `--aug ada`).
-* The options that name a later slice, or an unknown ADA pipe, are refused,
-  not ignored.
+* An unknown ADA pipe, or neither --data nor --synthetic, is refused; the
+  trainer refuses only freeze_layers and Greg with z_dim > 0, which the JAX
+  package does not run either.
 """
 
 import dataclasses
@@ -116,8 +117,7 @@ def test_cli_train_two_steps_on_cpu_then_resume(tmp_path):
 
 @pytest.mark.parametrize("flags,slice_name", [
     (["--aug", "ada", "--augpipe", "bgcx"], "ADA"), (["--aug", "fixed", "--augpipe", "none"], "ADA"),
-    (["--pl_weight", "2"], "path-length"),
-    (["--contextual_weight", "1"], "contextual"), ([], "--synthetic"),
+    ([], "--synthetic"),
 ])
 def test_cli_train_refuses_later_slices(tmp_path, flags, slice_name):
     argv = ["--outdir", str(tmp_path), "--device", "cpu"] + (flags or []) + (["--synthetic", "2"] if flags else [])
@@ -126,6 +126,14 @@ def test_cli_train_refuses_later_slices(tmp_path, flags, slice_name):
 
 
 def test_trainer_refuses_unsupported_configs():
-    for kw in ({"loss": tconfig.LossConfig(contextual_weight=1.0)}, {"loss": tconfig.LossConfig(pl_weight=1.0)}):
-        with pytest.raises(ValueError):
-            GANTrainer(dataclasses.replace(tiny_config(), **kw), device="cpu")
+    """Only what the JAX package does not run either: freeze_layers (recorded,
+    never applied) and Greg with z_dim > 0 (its mapping asserts a z)."""
+    cfg = tiny_config()
+    for kw, why in (({"model": dataclasses.replace(cfg.model, freeze_layers=2)}, "discriminator.py:39-49"),
+                    ({"model": dataclasses.replace(cfg.model, z_dim=8), "loss": tconfig.LossConfig(pl_weight=1.0)},
+                     "mapping.py:53-54")):
+        with pytest.raises(ValueError, match=why):
+            GANTrainer(dataclasses.replace(cfg, **kw), device="cpu")
+    for kw in ({"loss": tconfig.LossConfig(contextual_weight=1.0, pl_weight=1.0)},
+               {"model": dataclasses.replace(cfg.model, z_dim=8)}):
+        GANTrainer(dataclasses.replace(cfg, **kw), device="cpu")
