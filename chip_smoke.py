@@ -130,6 +130,31 @@ Phases, each fatal on failure:
    launches and peak memory, and every (kernel, extend or pad, dtype, shape)
    class of up2 and down2 that Greg launches, each held to its plain
    version.
+13. Conditional metrics phase (`metrics_conditional`, after the metrics
+   phase): the fixture's UPT_subset1_256_192 test images laid flat with their
+   parsing maps and OpenPose files beside them (the one whose file lists no
+   person left out) through `cli.calc_metrics --conditional` against
+   `serving_real`'s PNGs on the random InceptionV3; every item must carry its
+   part images and pose heatmap; the host ms of one `PartsFolderDataset` item.
+14. Transfer-learning phase (`training_transfer`): a legacy TF (G, D, Gs)
+   pickle of the ffhq256 resume preset's geometry (256px, 512-d z and w, 8
+   mapping layers, fmap_base 8192, a resnet D with minibatch-std groups of 8;
+   weights from seed 0, written through this script's own inverse of the
+   reference's TF name tables) placed in an `open_url` cache under a
+   temporary HOME, then `cli.train --resume ffhq256 --aug noaug` at full
+   width for 3 steps at batch 32: before the first step every transferred
+   tensor is on the card and equals the pickle's value after the layout
+   move, w_avg is the pickle's `dlatent_avg`; then losses finite and G, D and
+   G_ema moved.  It prints the leaves copied and shape-skipped and the
+   Gmain+Dmain time.
+15. Stock generator, skip D and plain 512 phases (`stock_forward`, `d_skip`,
+   `plain_512`): the same pickle's Gs through `generator_stock_from_tf` onto
+   the card, its forward at batch 16 in bf16 and fp32 timed and profiled,
+   against the CPU at batch 2; a full-width `architecture="skip"` D at batch
+   32 (bf16) timed, its fp32 logits against the CPU's; Generator512Plain at
+   the released-512 widths at batch 8 (bf16) timed, a thin one against the
+   CPU; every up2/down2 class these forwards launch held to its plain
+   version at max abs error 0.
 Each path's launch counts are set to 0 just before it runs and read just
 after; each path must launch exactly its kernels (`PATH_KERNELS`).  The
 training phase also counts down2's launches by (pad, dtype, input shape) in
@@ -185,7 +210,10 @@ PATH_KERNELS = {"serving_full": FUSED, "serving_v18_fused": FUSED, "serving_v18_
                 "training_ada": FUSED, "training_reg": FUSED, "serving_real": FUSED, "training_real": FUSED,
                 "metrics_network": FUSED, "metrics_folder": set(), "metrics_ppl": FUSED,
                 "serving_int8_static": INT8, "serving_int8": INT8, "serving_v18_int8_static": INT8,
-                "serving_512_int8_static": INT8}
+                "serving_512_int8_static": INT8, "training_transfer": FUSED,
+                # the stock generator's up-convs and image skips; the skip D's image pyramid; Generator512Plain's
+                # up-convs and image skips (no SPADE encoder, so no 1x1 down-conv); the conditional reals
+                "stock_forward": {"up2"}, "d_skip": {"down2"}, "plain_512": {"up2"}, "metrics_conditional": set()}
 FIXTURE = os.path.join("tests", "fixtures", "upt_mini")  # the UPT-layout fixture tree, relative to this script
 # the metrics phase: calc_metrics over the Full snapshot; a GeneratorFull forward launches up2 14 times and
 # down2 once (the serving path's counts), and calc_metric draws the generated source anew for each metric
@@ -1767,13 +1795,7 @@ def train_reg_phase(torch, ck, tag, tmp):
           f"{', '.join(f'{t:.1f}' for t in greg_ms)} ms; R1 {', '.join(f'{t:.1f}' for t in r1_ms)} ms; one Greg step's "
           f"launches {greg_launches}, peak {greg_peak:.2f} GB allocated; sec/kimg {step_ms / TRAIN_BATCH:.3f} (data + "
           f"Gmain+Dmain + Greg/{cfg.g_reg_interval} + R1/{cfg.d_reg_interval}, medians) [{tag}]", flush=True)
-    classes = fir_classes(torch, lambda: trainer.g_pl_step(state, batch))
-    g = torch.Generator(device="cuda").manual_seed(0)
-    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-    errs = {k: fir_check(torch, g, k[0], k[1], dtypes[k[2]], k[3])[3] for k in sorted(classes)}
-    print(f"Greg's FIR launches by (kernel, extend or pad, dtype, input shape), {sum(classes.values())} in "
-          f"{len(classes)} classes, each held to its plain version (max abs error): "
-          + ", ".join(f"{k}: {n}x {errs[k]:.3g}" for k, n in sorted(classes.items())) + f" [{tag}]", flush=True)
+    classes = fir_classes_equal(torch, lambda: trainer.g_pl_step(state, batch), "training_reg Greg", tag)
     assert {k[:2] for k in classes} >= {("up2", 0), ("up2", 1), ("down2", 0), ("down2", 1)}, sorted(classes)
 
     # the contextual loss's share of one Gmain: the same Gmain with and without it
@@ -2010,6 +2032,20 @@ def fir_classes(torch, fn):
     finally:
         uk._up2_apply, uk._down2_apply = up, down
     return hist
+
+
+def fir_classes_equal(torch, fn, label, tag):
+    """Count fn()'s up2/down2 launches by class (`fir_classes`) and hold each
+    class to its plain version at max abs error 0; returns the classes."""
+    classes = fir_classes(torch, fn)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    dtypes = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+    errs = {k: fir_check(torch, g, k[0], k[1], dtypes[k[2]], k[3])[3] for k in sorted(classes)}
+    print(f"{label}: FIR launches by (kernel, extend or pad, dtype, input shape), {sum(classes.values())} in "
+          f"{len(classes)} classes, each against its plain version (max abs error): "
+          + ", ".join(f"{k}: {n}x {errs[k]:.3g}" for k, n in sorted(classes.items())) + f" [{tag}]", flush=True)
+    assert all(e == 0.0 for e in errs.values()), errs
+    return classes
 
 
 def last_tick_sec_per_kimg(run_dir):
@@ -2431,6 +2467,444 @@ def metrics_phase(torch, ck, tag, tmp):
     return launches
 
 
+# ---------------------------------------------------------------- transfer learning, stock G, skip D, plain 512,
+# conditional metrics (the phases of ROADMAP §A 10 items 1-3)
+
+# the geometry of the `ffhq256` resume preset, ffhq-res256-mirror-paper256-noaug.pkl (StyleGAN2-ADA's paper256
+# config): TF static_kwargs of its Gs and D
+FFHQ256_G = dict(latent_size=512, label_size=0, dlatent_size=512, resolution=256, num_channels=3, mapping_layers=8,
+                 fmap_base=8192, fmap_max=512, architecture="skip")
+FFHQ256_D = dict(label_size=0, resolution=256, num_channels=3, fmap_base=8192, fmap_max=512, architecture="resnet",
+                 mbstd_group_size=8)
+TRANSFER_STEPS = 3
+STOCK_BATCH, PLAIN_512_BATCH = 16, 8
+# a forward's FIR launches: GeneratorStock (skip) and Generator512Plain run up2 twice in each block above the
+# first (the up-conv's pre-FIR and the image skip): 6 blocks 8 ... 256, 6 blocks 16 ... 512; the skip D runs
+# down2 on the image at each of its 6 blocks 256 ... 8
+STOCK_UP2, D_SKIP_DOWN2, PLAIN_512_UP2 = 12, 6, 12
+GEN_RTOL, GEN_ATOL = 1e-2, 5e-3  # card vs CPU of a generator (tests/test_torch_generator.py's limits)
+D_RTOL, D_ATOL = 1e-4, 1e-5  # ... of D's logits (tests/test_torch_discriminator.py's)
+
+
+def tf_gen_name(key):
+    """A GeneratorStock state_dict key -> (the TF variable name a StyleGAN2
+    export gives it, layout kind): this script's own inverse of the
+    reference's pattern table (`legacy.py:170-202`)."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    if parts[0] == "mapping":
+        return f"mapping/Dense{parts[1][2:]}/{leaf}", "fcT" if leaf == "weight" else "plain"
+    r = int(parts[1][1:])
+    if leaf == "const":
+        return f"synthesis/{r}x{r}/Const/const", "const"
+    layer = {"conv0": "Conv0_up", "conv1": "Conv" if r == 4 else "Conv1", "torgb": "ToRGB"}[parts[2]]
+    if leaf == "noise_const":
+        lod = int(math.log2(r))
+        return f"synthesis/noise{0 if r == 4 else 2 * lod - (5 if parts[2] == 'conv0' else 4)}", "noise"
+    if parts[3] == "affine":
+        return (f"synthesis/{r}x{r}/{layer}/mod_{leaf}", "fcT" if leaf == "weight" else "bias+1")
+    return f"synthesis/{r}x{r}/{layer}/{leaf}", "flip" if (leaf == "weight" and parts[2] == "conv0") else "plain"
+
+
+def tf_disc_name(key):
+    """A Discriminator state_dict key -> (TF name, layout kind) (`legacy.py:266-285`)."""
+    parts = key.split(".")
+    block, layer, leaf = parts[0], parts[1], parts[-1]
+    dense = "fcT" if leaf == "weight" else "plain"
+    if block == "b4":
+        return {"conv": (f"4x4/Conv/{leaf}", "plain"), "fc": (f"4x4/Dense0/{leaf}", dense),
+                "out": (f"Output/{leaf}", dense), "fromrgb": (f"4x4/FromRGB/{leaf}", "plain")}[layer]
+    r = int(block[1:])
+    name = {"fromrgb": "FromRGB", "conv0": "Conv0", "conv1": "Conv1_down", "skip": "Skip"}[layer]
+    return f"{r}x{r}/{name}/{leaf}", "plain"
+
+
+def tf_shape(shape, kind):
+    """The TF shape of a port tensor of `shape` (OIHW convs are [kh, kw, in, out] in TF)."""
+    if len(shape) == 4:
+        return (shape[2], shape[3], shape[1], shape[0])
+    return {"fcT": shape[::-1], "const": (1,) + shape, "noise": (1, 1) + shape}.get(kind, shape)
+
+
+def tf_to_port(a, kind):
+    """What the conversion must make of TF array `a` (the reference's `legacy.py` moves)."""
+    import numpy as np
+
+    if kind == "fcT":
+        return a.T
+    if kind == "const":
+        return a[0]
+    if kind == "noise":
+        return a[0, 0]
+    if kind == "bias+1":
+        return a + 1.0
+    if a.ndim == 4:
+        return (a[::-1, ::-1] if kind == "flip" else a).transpose(3, 2, 0, 1)
+    return np.asarray(a)
+
+
+class _TFNetwork:
+    """Pickled as `dnnlib.tflib.network.Network`, the class a TF export names."""
+
+
+def legacy_tf_pickle(torch, path):
+    """Write a legacy TF (G, D, Gs) pickle of the ffhq256 preset's geometry,
+    weights drawn from seed 0 by TF name (G and Gs share their arrays, split
+    into `mapping` and `synthesis` components as an export is).  Returns the
+    tensors the port must make of it: {"G": {key: tensor}, "D": {...},
+    "w_avg": tensor}."""
+    import pickle
+    import types
+
+    import numpy as np
+
+    from pasta_gan_tpu_torch.io import tf_legacy
+    from pasta_gan_tpu_torch.models.generator_stock import GeneratorStock
+    from pasta_gan_tpu_torch.nn.discriminator import Discriminator
+
+    rng = np.random.default_rng(0)
+    gen = GeneratorStock(**tf_legacy.generator_kwargs_from_tf(tf_legacy.TFNetworkStub(version=4,
+                                                                                       static_kwargs=FFHQ256_G)))
+    disc = Discriminator(c_dim=0, img_resolution=256, architecture="resnet", channel_base=16384, channel_max=512,
+                         mbstd_group_size=8)
+    expected, tf_vars = {}, {}
+    for net, module, name_of in (("G", gen, tf_gen_name), ("D", disc, tf_disc_name)):
+        expected[net], tf_vars[net] = {}, {}
+        for key, leaf in module.state_dict().items():
+            name, kind = name_of(key)
+            a = rng.standard_normal(tf_shape(tuple(leaf.shape), kind)).astype(np.float32)
+            if kind in ("bias+1", "plain") and leaf.ndim <= 1:
+                a *= 0.1  # biases, noise strengths
+            elif name.startswith("mapping/") and kind == "fcT":
+                a *= 100.0  # the mapping's raw weights are N(0, 1 / lr_multiplier)
+            tf_vars[net][name] = a
+            expected[net][key] = torch.from_numpy(np.array(tf_to_port(a, kind), dtype=np.float32, order="C"))
+    w_avg = rng.standard_normal(512).astype(np.float32)
+    del gen, disc
+
+    def network(static_kwargs, variables, components=None):
+        n = _TFNetwork()
+        n.__dict__.update(version=4, name="", static_kwargs=static_kwargs, variables=list(variables.items()),
+                          components=components or {})
+        return n
+
+    g_vars = tf_vars["G"]
+    comps = {c: network({}, {k[len(c) + 1:]: v for k, v in g_vars.items() if k.startswith(c + "/")})
+             for c in ("mapping", "synthesis")}
+    G = network(FFHQ256_G, {"dlatent_avg": w_avg}, comps)
+    nets = (G, network(FFHQ256_D, tf_vars["D"]), G)
+    mod = types.ModuleType("dnnlib.tflib.network")
+    mod.Network = _TFNetwork
+    _TFNetwork.__module__, _TFNetwork.__qualname__, _TFNetwork.__name__ = "dnnlib.tflib.network", "Network", "Network"
+    fake = {"dnnlib": types.ModuleType("dnnlib"), "dnnlib.tflib": types.ModuleType("dnnlib.tflib"),
+            "dnnlib.tflib.network": mod}
+    saved = {k: sys.modules.get(k) for k in fake}
+    sys.modules.update(fake)
+    try:
+        with open(path, "wb") as f:
+            pickle.dump(nets, f, protocol=4)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+    expected["w_avg"] = torch.from_numpy(w_avg)
+    return expected
+
+
+def check_transferred(torch, state, expected):
+    """Every tensor of the train state that the pickle names with its shape
+    equals the pickle's value after the layout move, on the card; returns
+    {"G": (copied, shape-skipped), "G_ema": ..., "D": ..., "w_avg": moved}."""
+    out = {}
+    for net, src in (("G", expected["G"]), ("G_ema", expected["G"]), ("D", expected["D"])):
+        sd = getattr(state, net).state_dict()
+        copied = skipped = 0
+        for key, want in src.items():
+            if key not in sd:
+                continue
+            if tuple(sd[key].shape) != tuple(want.shape):
+                skipped += 1
+                continue
+            assert sd[key].device.type == "cuda", (net, key, sd[key].device)
+            assert torch.equal(sd[key].cpu(), want), f"{net}.{key} differs from the pickle's value"
+            copied += 1
+        out[net] = (copied, skipped)
+    assert out["G"] == out["G_ema"], out
+    out["w_avg"] = torch.equal(state.w_avg.cpu(), expected["w_avg"])
+    return out
+
+
+def transfer_phase(torch, ck, tag, tmp):
+    """The training_transfer path: the ffhq256 preset's geometry as a legacy
+    TF pickle in an `open_url` cache under a temporary HOME, then `cli.train
+    --resume ffhq256` at full width (bf16, batch 32, noaug, 64 synthetic
+    samples, TRANSFER_STEPS steps, no grids).  Before the first step every
+    transferred tensor must be on the card and equal the pickle's value
+    after the layout move (checked by a wrapper around
+    `io/transfer.py:transfer_from_network_pickle`, removed again after the
+    run); then run_cli_train's checks (finite stats, G, D and G_ema moved,
+    exactly the FUSED kernels).  Returns (launches, pickle path, expected
+    tensors)."""
+    import hashlib
+
+    from pasta_gan_tpu_torch.cli import train as cli_train
+    from pasta_gan_tpu_torch.io import transfer
+
+    t0 = time.perf_counter()
+    home = os.path.join(tmp, "home")
+    cache = os.path.join(home, ".cache", "pasta_gan_tpu")
+    os.makedirs(cache)
+    url = cli_train.RESUME_SPECS["ffhq256"]
+    pkl = os.path.join(cache, f"{hashlib.md5(url.encode()).hexdigest()}_{url.rsplit('/', 1)[1]}")
+    expected = legacy_tf_pickle(torch, pkl)
+    make_s = time.perf_counter() - t0
+    seen, original, old_home = {}, transfer.transfer_from_network_pickle, os.environ.get("HOME")
+
+    def checked(state, path, verbose=True):
+        t1 = time.perf_counter()
+        state = original(state, path, verbose)
+        torch.cuda.synchronize()
+        seen["s"] = time.perf_counter() - t1
+        seen.update(check_transferred(torch, state, expected))
+        return state
+
+    transfer.transfer_from_network_pickle, os.environ["HOME"] = checked, home
+    try:
+        out, launches = run_cli_train(torch, ck, tag, tmp, "training_transfer",
+                                      ["--aug", "noaug", "--resume", "ffhq256"], grids=False, steps=TRANSFER_STEPS)
+    finally:
+        transfer.transfer_from_network_pickle = original
+        if old_home is None:
+            os.environ.pop("HOME", None)
+        else:
+            os.environ["HOME"] = old_home
+    assert "G" in seen, "the run did not transfer from the pickle"
+    assert out["run_dir"].endswith("-resumeffhq256"), out["run_dir"]
+    assert seen["w_avg"], "w_avg is not the pickle's dlatent_avg"
+    assert seen["G"][0] > 0 and seen["D"][0] > 0, f"nothing transferred: {seen}"
+    state, records = out["state"], out["records"]
+    moved = {net: any(not torch.equal(sd[k].cpu(), v) for k, v in expected["G" if net != "D" else "D"].items()
+                      if k in sd and sd[k].shape == v.shape and "noise_const" not in k)
+             for net, sd in (("G", state.G.state_dict()), ("G_ema", state.G_ema.state_dict()),
+                             ("D", state.D.state_dict()))}
+    assert all(moved.values()), f"transferred tensors did not train: {moved}"
+    main_ms = [r["Timing/Gmain_Dmain"] * 1e3 for r in records[1:]]
+    print(f"training_transfer: pickle of {os.path.getsize(pkl) / 1e6:.1f} MB written in {make_s:.1f} s; converted and "
+          f"transferred in {seen['s']:.2f} s; G {seen['G'][0]} leaves copied, {seen['G'][1]} shape-skipped (G_ema the "
+          f"same), D {seen['D'][0]} copied, {seen['D'][1]} shape-skipped; w_avg moved to dlatent_avg: "
+          f"{seen['w_avg']}; Gmain+Dmain median {statistics.median(main_ms):.1f} ms (steps 2-{TRANSFER_STEPS}: "
+          f"{', '.join(f'{t:.1f}' for t in main_ms)}; step 1 with R1 {records[0]['Timing/Gmain_Dmain'] * 1e3:.1f}); "
+          f"losses G {[round(r['Loss/G/loss'], 4) for r in records]} D {[round(r['Loss/D/loss'], 4) for r in records]} "
+          f"[{tag}]", flush=True)
+    del out, state
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    return launches, pkl, expected
+
+
+def timed_forward(torch, fn, label, tag, iters=10):
+    """Median host ms of fn() ended by a synchronise, then its device ms and
+    top operations under torch.profiler; printed."""
+    ms, out = host_ms(torch, fn, iters)
+    device_ms, n_ops, top = device_profile(torch, fn, iters=3)
+    dev = "not measured (no device time in the trace)" if device_ms is None else f"{device_ms:.3f} ms"
+    busy = "not measured" if device_ms is None else f"{device_ms / ms:.3f}"
+    print(f"{label}: host {ms:.2f} ms (median of {iters}), device {dev}, busy {busy}, {n_ops:.0f} device ops "
+          f"[{tag}]", flush=True)
+    for op, op_ms, n in top:
+        print(f"    {op_ms:9.3f} ms {n:7.1f}x  {op[:100]}", flush=True)
+    return ms, device_ms, out
+
+
+def stock_phase(torch, ck, tag, pkl, expected):
+    """stock_forward: the transfer pickle's Gs converted by
+    `generator_stock_from_tf` onto the card (every tensor equal to the
+    expected one), one bf16 forward at batch STOCK_BATCH with the launch
+    counts set to 0 just before it, that forward timed in fp32 and bf16, its
+    FIR classes held to their plain versions, the card against the CPU at
+    batch 2 (fp32, noise const, psi 0.7 toward dlatent_avg).  d_skip: a
+    full-width skip-architecture D of the same width (seeded weights), one
+    bf16 forward at batch 32 counted, timed, its FIR classes checked, and its
+    fp32 logits at batch 8 against the CPU's.  Returns both paths' launches."""
+    from pasta_gan_tpu_torch.io import tf_legacy
+    from pasta_gan_tpu_torch.nn.discriminator import Discriminator
+
+    launches = {}
+    with open(pkl, "rb") as f:
+        stubs = tf_legacy.load_tf_network_stubs(f)
+    gen, sd, w_avg = tf_legacy.generator_stock_from_tf(stubs[2])
+    del stubs
+    assert sorted(sd) == sorted(expected["G"]) and all(torch.equal(sd[k], v) for k, v in expected["G"].items())
+    assert torch.equal(w_avg, expected["w_avg"])
+    gen = gen.cuda().eval()
+    w_avg = w_avg.cuda()
+    z = torch.randn((STOCK_BATCH, 512), generator=torch.Generator().manual_seed(1)).cuda()
+
+    def forward(b=STOCK_BATCH):
+        with torch.no_grad():
+            return gen(z[:b], None, w_avg=w_avg, truncation_psi=0.7, noise_mode="const")[0]
+
+    gen.set_dtype(torch.bfloat16)
+    ck.reset_launch_counts()
+    img = forward()
+    torch.cuda.synchronize()
+    launches["stock_forward"] = ck.launch_counts()
+    check_launches("stock_forward", launches["stock_forward"], {"up2": STOCK_UP2})
+    assert img.shape == (STOCK_BATCH, 256, 256, 3) and bool(torch.isfinite(img).all())
+    torch.cuda.reset_peak_memory_stats()
+    bf16_ms, bf16_dev, _ = timed_forward(torch, forward, f"stock_forward GeneratorStock 256 (ffhq256 geometry, "
+                                         f"{sum(p.numel() for p in gen.parameters()) / 1e6:.2f} M parameters) batch "
+                                         f"{STOCK_BATCH} bf16", tag)
+    fir_classes_equal(torch, forward, "stock_forward bf16", tag)
+    gen.set_dtype(torch.float32)
+    fp32_ms, fp32_dev, img32 = timed_forward(torch, forward, f"stock_forward batch {STOCK_BATCH} fp32 (TF32 off)", tag)
+    gen.set_dtype(torch.bfloat16)
+    rel = float((forward().float() - img32).norm() / img32.norm())
+    print(f"stock_forward: {STOCK_BATCH / bf16_ms * 1e3:.1f} images/s bf16, {STOCK_BATCH / fp32_ms * 1e3:.1f} fp32; "
+          f"bf16 vs fp32 relative L2 {rel:.4g} (limit {BF16_REL_L2}); launches {launches['stock_forward']}; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated [{tag}]", flush=True)
+    assert rel <= BF16_REL_L2
+    gen.set_dtype(torch.float32)
+    with torch.no_grad():
+        on_card = forward(2).cpu()
+        cpu_gen = gen.cpu()
+        on_cpu = cpu_gen(z[:2].cpu(), None, w_avg=w_avg.cpu(), truncation_psi=0.7, noise_mode="const")[0]
+    err = float((on_card - on_cpu).abs().max())
+    print(f"stock_forward card vs CPU (batch 2, fp32, noise const, psi 0.7): max abs error {err:.3g}, relative L2 "
+          f"{float((on_card - on_cpu).norm() / on_cpu.norm()):.3g} (rtol {GEN_RTOL}, atol {GEN_ATOL}) [{tag}]",
+          flush=True)
+    torch.testing.assert_close(on_card, on_cpu, rtol=GEN_RTOL, atol=GEN_ATOL)
+    del gen, cpu_gen, img, img32
+
+    disc = Discriminator(c_dim=0, img_resolution=256, architecture="skip", channel_base=16384, channel_max=512,
+                         mbstd_group_size=8).reset_parameters(torch.Generator().manual_seed(2))
+    imgs = torch.randn((TRAIN_BATCH, 3, 256, 256), generator=torch.Generator().manual_seed(3)) * 0.5
+    with torch.no_grad():
+        logits_cpu = disc(imgs[:8], None)
+    disc = disc.cuda().set_dtype(torch.bfloat16)
+    x = imgs.cuda()
+
+    def d_forward():
+        with torch.no_grad():
+            return disc(x, None)
+
+    ck.reset_launch_counts()
+    logits = d_forward()
+    torch.cuda.synchronize()
+    launches["d_skip"] = ck.launch_counts()
+    check_launches("d_skip", launches["d_skip"], {"down2": D_SKIP_DOWN2})
+    assert logits.shape == (TRAIN_BATCH, 1) and bool(torch.isfinite(logits).all())
+    timed_forward(torch, d_forward, f"d_skip Discriminator(architecture='skip') 256 batch {TRAIN_BATCH} bf16", tag)
+    fir_classes_equal(torch, d_forward, "d_skip bf16", tag)
+    disc.set_dtype(torch.float32)
+    with torch.no_grad():
+        logits_card = disc(x[:8], None).cpu()
+    print(f"d_skip card vs CPU (batch 8, fp32): logits max abs error "
+          f"{float((logits_card - logits_cpu).abs().max()):.3g} (rtol {D_RTOL}, atol {D_ATOL}); launches "
+          f"{launches['d_skip']} [{tag}]", flush=True)
+    torch.testing.assert_close(logits_card, logits_cpu, rtol=D_RTOL, atol=D_ATOL)
+    del disc, x
+    torch.cuda.empty_cache()
+    return launches
+
+
+def plain_512_phase(torch, ck, tag):
+    """plain_512: Generator512Plain at the released-512 widths (channel_base
+    32768, channel_max 512) on random inputs of the 512 path's shapes (a
+    48-channel style stack at 128x128, retain and pose at 512x512), one bf16
+    forward at batch PLAIN_512_BATCH counted, timed, its FIR classes held to
+    their plain versions; the card against the CPU at batch 1 on a thin width
+    (channel_base 1024, channel_max 32), fp32.  Returns the path's launches."""
+    from pasta_gan_tpu_torch.models import Generator512Plain
+
+    g = torch.Generator().manual_seed(4)
+
+    def inputs(b):
+        return (torch.randn((b, 128, 128, 48), generator=g) * 0.5, torch.randn((b, 512, 512, 3), generator=g) * 0.5,
+                torch.randn((b, 512, 512, 6), generator=g) * 0.5)
+
+    gen = Generator512Plain().reset_parameters(torch.Generator().manual_seed(5)).cuda().set_dtype(torch.bfloat16)
+    x = [t.cuda().to(torch.bfloat16) for t in inputs(PLAIN_512_BATCH)]
+
+    def forward():
+        with torch.no_grad():
+            return gen(None, *x, noise_mode="const")
+
+    ck.reset_launch_counts()
+    img = forward()
+    torch.cuda.synchronize()
+    launches = {"plain_512": ck.launch_counts()}
+    check_launches("plain_512", launches["plain_512"], {"up2": PLAIN_512_UP2})
+    assert img.shape == (PLAIN_512_BATCH, 512, 512, 3) and bool(torch.isfinite(img).all())
+    torch.cuda.reset_peak_memory_stats()
+    ms, _, _ = timed_forward(torch, forward, f"plain_512 Generator512Plain (channel_base 32768, "
+                             f"{sum(p.numel() for p in gen.parameters()) / 1e6:.2f} M parameters) batch "
+                             f"{PLAIN_512_BATCH} bf16", tag, iters=5)
+    fir_classes_equal(torch, forward, "plain_512 bf16", tag)
+    print(f"plain_512: {PLAIN_512_BATCH / ms * 1e3:.1f} images/s; launches {launches['plain_512']}; peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated [{tag}]", flush=True)
+    del gen, x, img
+    thin = Generator512Plain(channel_base=1024, channel_max=32).reset_parameters(torch.Generator().manual_seed(6))
+    x1 = inputs(1)
+    with torch.no_grad():
+        on_cpu = thin(None, *x1, noise_mode="const")
+        on_card = thin.cuda()(None, *[t.cuda() for t in x1], noise_mode="const").cpu()
+    print(f"plain_512 card vs CPU (batch 1, thin, fp32): max abs error {float((on_card - on_cpu).abs().max()):.3g} "
+          f"(rtol {GEN_RTOL}, atol {GEN_ATOL}) [{tag}]", flush=True)
+    torch.testing.assert_close(on_card, on_cpu, rtol=GEN_RTOL, atol=GEN_ATOL)
+    torch.cuda.empty_cache()
+    return launches
+
+
+def metrics_conditional_phase(torch, ck, tag, tmp):
+    """metrics_conditional: `cli.calc_metrics --conditional` with the fixture's
+    UPT_subset1_256_192 test images laid flat as reals, each with its
+    `_label.png` and `_keypoints.json` beside it (`upt_0004`'s OpenPose file
+    lists no person, so it is left out), against `serving_real`'s PNGs, FID
+    on the random-weight InceptionV3 of the metrics phase; every item must
+    carry its part images and pose heatmap; the host ms of one
+    `PartsFolderDataset` item.  Returns the path's launches (none)."""
+    import json
+    import shutil
+
+    from pasta_gan_tpu_torch.data.parts import PartsFolderDataset
+
+    src = os.path.join(fixture_root(), "UPT_subset1_256_192")
+    real_dir = os.path.join(tmp, "parts_real")
+    os.makedirs(real_dir)
+    left_out = []
+    for name in sorted(os.listdir(os.path.join(src, "image"))):
+        stem = os.path.splitext(name)[0]
+        with open(os.path.join(src, "keypoints", f"{stem}_keypoints.json")) as f:
+            if not json.load(f)["people"]:
+                left_out.append(stem)
+                continue
+        shutil.copy(os.path.join(src, "image", name), real_dir)
+        shutil.copy(os.path.join(src, "parsing", f"{stem}_label.png"), real_dir)
+        shutil.copy(os.path.join(src, "keypoints", f"{stem}_keypoints.json"), real_dir)
+    ds = PartsFolderDataset(real_dir, resolution=256)
+    item_ms, complete = [], 0
+    for i in range(len(ds)):
+        t0 = time.perf_counter()
+        item = ds[i]
+        item_ms.append((time.perf_counter() - t0) * 1e3)
+        complete += all(k in item for k in ("head_img", "top_img", "pant_img", "palm_img", "pose_heatmap"))
+        assert item["image"].shape == (256, 256, 3) and item["pose_heatmap"].shape == (256, 256, 18)
+    assert complete == len(ds) > 0, f"{complete} of {len(ds)} items carry their part images and heatmap"
+    launches = {}
+    res, launches["metrics_conditional"] = run_calc_metrics(
+        torch, ck, tag, "metrics_conditional",
+        ["--gen_dir", os.path.join(tmp, "tryon_real"), "--real_dir", real_dir, "--conditional", "--resolution", "256",
+         "--detector", os.path.join(tmp, "inception.pt")], ["fid50k_full"])
+    check_launches("metrics_conditional", launches["metrics_conditional"], {})
+    print(f"metrics_conditional: FID {res[0]['results']['fid50k_full']:.6g} over {len(ds)} conditional reals "
+          f"({complete} with part images and heatmap; left out, no person: {left_out}); one PartsFolderDataset item "
+          f"{statistics.median(item_ms):.2f} ms on the host (median of {len(ds)}) [{tag}]", flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -2470,6 +2944,11 @@ def main():
         launches["training_reg"] = train_reg_phase(torch, ck, tag, tmp)
         launches.update(real_data_phase(torch, ck, tag, tmp))
         launches.update(metrics_phase(torch, ck, tag, tmp))
+        launches.update(metrics_conditional_phase(torch, ck, tag, tmp))
+        launches["training_transfer"], pkl, expected = transfer_phase(torch, ck, tag, tmp)
+        launches.update(stock_phase(torch, ck, tag, pkl, expected))
+        del expected
+        launches.update(plain_512_phase(torch, ck, tag))
     train_card_vs_cpu(torch, tag)
     train_card_vs_cpu(torch, tag, "ADA debug percentile", ada="debug")
     train_card_vs_cpu(torch, tag, "ADA random draws", ada="random")

@@ -20,8 +20,11 @@ The network source yields the whole 256x256 frame as uint8 (the JAX
 source's frame; `cli.test` un-pads its PNGs to 256x192) and refuses a
 snapshot that does not hold a `full` generator.  It loads each batch's pairs
 when it reaches them (the JAX source loads every pair first).
-`--conditional` (part images and pose heatmaps for the reals,
-`data/parts.py`) is a later slice of the port.
+`--conditional` reads the reals through `data/parts.py:PartsFolderDataset`
+(each image with its `<stem>_label.png` parsing and `<stem>_keypoints.json`
+pose beside it: the square-padded image, resized by LANCZOS to
+`--resolution`, feeds the detector; the part images and the pose heatmap are
+built for each item as the reference's conditional dataset builds them).
 """
 
 from __future__ import annotations
@@ -54,6 +57,27 @@ def _folder_source(path: str, batch: int = 32, resolution=None):
             if resolution is not None:
                 img = resize(img, (resolution, resolution), "lanczos")
             buf.append(img)
+            if len(buf) == batch:
+                yield np.stack(buf)
+                buf = []
+        if buf:
+            yield np.stack(buf)
+
+    return source
+
+
+def _parts_source(path: str, batch: int = 32, resolution=None):
+    """The reals of `--conditional` (JAX `cli/calc_metrics.py:283-300`):
+    each `PartsFolderDataset(path, resolution)` item's `image`, in uint8
+    [B, S, S, 3] numpy batches."""
+    from ..data.parts import PartsFolderDataset
+
+    ds = PartsFolderDataset(path, resolution=resolution)
+
+    def source():
+        buf = []
+        for i in range(len(ds)):
+            buf.append(ds[i]["image"])
             if len(buf) == batch:
                 yield np.stack(buf)
                 buf = []
@@ -192,7 +216,7 @@ def main(argv=None):
     p.add_argument("--batch", type=int, default=32)
     p.add_argument("--resolution", type=int, default=None, help="resize folder images (LANCZOS)")
     p.add_argument("--conditional", action="store_true",
-                   help="real source with part images + pose heatmaps (a later slice of the port)")
+                   help="reals from --real_dir with part images + pose heatmaps (data/parts.py)")
     p.add_argument("--ppl_detector", default=None,
                    help="vgg16 (+ optional LPIPS heads) weights for the LPIPS distance (metrics/ppl.py "
                         "lpips_distance), or 'auto'; without it PPL uses the float-path stand-in distance "
@@ -200,9 +224,6 @@ def main(argv=None):
     p.add_argument("--ppl_samples", type=int, default=None, help="override the 50k PPL sample protocol")
     p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
     args = p.parse_args(argv)
-    if args.conditional:
-        raise SystemExit("--conditional: the parts dataset (data/parts.py) is a later slice of the port "
-                         "(ROADMAP §A 10)")
     device = resolve_device(args.device)
     # FID is sensitive to TF32: the reference's calc_metrics pins it off for the run
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -255,6 +276,8 @@ def main(argv=None):
 
     if ppl_only:
         real_source = None
+    elif args.real_dir and args.conditional:
+        real_source = _parts_source(args.real_dir, args.batch, args.resolution)
     elif args.real_dir:
         real_source = _folder_source(args.real_dir, args.batch, args.resolution)
     elif args.synthetic:

@@ -36,6 +36,16 @@ loss uses a He-initialized VGG19; nothing is downloaded.  The contextual
 loss runs only with that VGG loaded, as in the JAX package: with
 `--vgg_weight 0` it is off.  `-n/--dry-run` prints the resolved config and
 exits.
+
+`--resume` takes this package's train state (train-state-*.pt: the whole
+state is restored), a network pickle for transfer learning (a legacy
+TensorFlow StyleGAN2 export or a reference snapshot: the tensors whose
+names and shapes agree are copied into the fresh G, G_ema and D,
+`io/transfer.py`), one of the reference's presets (`RESUME_SPECS`: ffhq256,
+ffhq512, ffhq1024, celebahq256, lsundog256) or `noresume`.  A preset is read
+from the `open_url` cache, `~/.cache/pasta_gan_tpu/<md5(url)>_<file name>`;
+nothing is downloaded.  Any resume from a file sets the ADA horizon
+`ada.kimg` to 100, as the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -43,10 +53,51 @@ from __future__ import annotations
 import argparse
 import os
 import re
+import zipfile
 
 import torch
 
 from .. import resolve_device
+
+
+# the reference's transfer-learning presets (train_wo_flow_fullbody.py:319-325)
+_NETS = "https://nvlabs-fi-cdn.nvidia.com/stylegan2-ada-pytorch/pretrained/transfer-learning-source-nets/"
+RESUME_SPECS = {
+    "ffhq256": _NETS + "ffhq-res256-mirror-paper256-noaug.pkl",
+    "ffhq512": _NETS + "ffhq-res512-mirror-stylegan2-noaug.pkl",
+    "ffhq1024": _NETS + "ffhq-res1024-mirror-stylegan2-noaug.pkl",
+    "celebahq256": _NETS + "celebahq-res256-mirror-paper256-kimg100000-ada-target0.5.pkl",
+    "lsundog256": _NETS + "lsundog-res256-paper256-kimg100000-noaug.pkl",
+}
+
+
+def _no_download(url: str):
+    raise IOError(f"{url} is not in the cache, and nothing is downloaded")
+
+
+def resolve_resume(resume):
+    """`--resume`'s value -> (file or None, the run-dir desc suffix the JAX
+    CLI appends): a preset resolves through the `open_url` cache alone."""
+    if resume is None:
+        return None, ""
+    if resume == "noresume":
+        return None, "-noresume"
+    if resume in RESUME_SPECS:
+        from ..utils import open_url
+
+        url = RESUME_SPECS[resume]
+        try:
+            path = open_url(url, return_filename=True, num_attempts=1, _fetch=_no_download)
+        except IOError as e:
+            raise SystemExit(
+                f"--resume {resume}: the preset pickle is not in the open_url cache ({e}); download {url} "
+                "elsewhere and place it in ~/.cache/pasta_gan_tpu as <md5(url)>_<file name> (WEIGHTS.md), "
+                "or pass a local .pkl path")
+        return path, f"-resume{resume}"
+    if not os.path.isfile(resume):
+        raise SystemExit(f"--resume {resume}: no such file, and not a preset ({', '.join(RESUME_SPECS)})")
+    # this package's train state is a torch.save zip; anything else is a network pickle
+    return resume, "" if zipfile.is_zipfile(resume) else "-resumecustom"
 
 
 def make_run_dir(outdir: str, desc: str) -> str:
@@ -90,7 +141,11 @@ def main(argv=None):
     p.add_argument("--contextual_weight", type=float, default=0.0,
                    help="contextual loss weight (needs the VGG, i.e. --vgg_weight > 0)")
     p.add_argument("--vgg_ckpt", default=None, help="torchvision vgg19 state_dict file on disk")
-    p.add_argument("--resume", default=None, help="a train-state checkpoint of this package (train-state-*.pt)")
+    p.add_argument("--resume", default=None,
+                   help="this package's train state (train-state-*.pt, full resume), a network .pkl for transfer "
+                        "learning (a legacy TF StyleGAN2 export or a reference snapshot: name and shape matches "
+                        "copy in), a preset (ffhq256, ffhq512, ffhq1024, celebahq256, lsundog256; read from the "
+                        "open_url cache) or noresume")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--snap", type=int, default=50, help="network snapshot interval in ticks")
     p.add_argument("--img_snap", type=int, default=None,
@@ -125,7 +180,8 @@ def main(argv=None):
         overrides["image_snapshot_ticks"] = args.img_snap
     if args.augpipe not in AUGPIPE_SPECS:
         raise SystemExit(f"--augpipe {args.augpipe}: not an ADA pipe preset ({', '.join(AUGPIPE_SPECS)})")
-    if args.resume is not None and not os.path.isdir(args.resume):
+    resume, resume_desc = resolve_resume(args.resume)
+    if resume is not None:
         # the JAX CLI's rule: ADA reacts faster when resuming from a file
         overrides["ada.kimg"] = 100
     if args.fmaps is not None:
@@ -163,10 +219,10 @@ def main(argv=None):
         dataset, desc = SyntheticUvitonDataset(num_samples=args.synthetic, seed=args.seed), "-synthetic"
     else:
         dataset, desc = UvitonDatasetFull(args.data, random_seed=args.seed), ""
-    run_dir = make_run_dir(args.outdir, f"{args.cfg}-batch{config.batch_size}{desc}")
+    run_dir = make_run_dir(args.outdir, f"{args.cfg}-batch{config.batch_size}{desc}{resume_desc}")
     print(f"run dir: {run_dir}; device: {device}; {len(dataset)} training samples")
     trainer, state, records = training_loop(run_dir, dataset, config, device=device, vgg=vgg,
-                                            resume=args.resume, total_kimg=args.kimg)
+                                            resume=resume, total_kimg=args.kimg)
     return {"run_dir": run_dir, "trainer": trainer, "state": state, "records": records}
 
 

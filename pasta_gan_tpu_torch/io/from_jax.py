@@ -1,6 +1,8 @@
-"""JAX variables -> this package's state_dicts: GeneratorFull, GeneratorV18, Discriminator, VGG19,
-and the metrics' SimpleConvFeatures; and a generator's int8 "quant_scales" collection ->
-its activation sites (`quant_scales_from_jax`).
+"""JAX variables -> this package's state_dicts: GeneratorFull, GeneratorV18, Generator512,
+Generator512Plain, GeneratorStock, Discriminator (every architecture: the skip architecture's
+per-block and epilogue `fromrgb` carry by the same names), VGG19, and the metrics'
+SimpleConvFeatures; and a generator's int8 "quant_scales" collection -> its activation sites
+(`quant_scales_from_jax`).
 
 The reverse of `pasta_gan_tpu/io/torch_import.py:_ref_key`, kept here so the
 port never imports the JAX package.  `variables` is the JAX package's nested
@@ -77,8 +79,8 @@ def port_key(path: Tuple[str, ...]) -> Tuple[str, str]:
 
 
 def state_dict_from_jax(variables, expected: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-    """Translate JAX GeneratorFull, GeneratorV18 or Generator512 `variables`
-    into a port state_dict (the V18 mask heads `m_weight1` / `m_weight2` are
+    """Translate JAX GeneratorFull, GeneratorV18, Generator512, Generator512Plain
+    or GeneratorStock `variables` into a port state_dict (the V18 mask heads `m_weight1` / `m_weight2` are
     1x1 HWIO convs like every other weight; the "buffers" collection holds
     each synthesis layer's `noise_const` map, a persistent buffer of the
     port).

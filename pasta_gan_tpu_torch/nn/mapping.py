@@ -2,6 +2,10 @@
 
 Pure forward: returns the broadcast ws and the raw per-sample w; truncation
 takes `w_avg` as an argument (it lives in the snapshot, not in a buffer).
+`w_avg_beta` is accepted and unused, as in the JAX package (its
+`nn/mapping.py:30`), so that the kwargs converted from a TensorFlow pickle
+(`io/tf_legacy.py:generator_kwargs_from_tf`) build this module as they are:
+the trainer keeps `w_avg` and its decay.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from .layers import FullyConnectedLayer, normalize_2nd_moment
 
 class MappingNetwork(nn.Module):
     def __init__(self, z_dim, c_dim, w_dim, num_ws, num_layers=8, embed_features=None,
-                 layer_features=None, activation="lrelu", lr_multiplier=0.01):
+                 layer_features=None, activation="lrelu", lr_multiplier=0.01, w_avg_beta=None):
         super().__init__()
         if z_dim <= 0 and c_dim <= 0:
             raise ValueError("MappingNetwork needs z_dim > 0 or c_dim > 0")

@@ -148,6 +148,17 @@ class ToRGBLayerFull(Layer):
         return img, aux
 
 
+class ToRGBLayer(ToRGBLayerFull):
+    """The plain ToRGB (reference `networks.py:319-334`): a 1x1 modulated conv
+    without demodulation, no head; returns the image alone."""
+
+    def __init__(self, in_channels, out_channels, w_dim, conv_clamp=None):
+        super().__init__(in_channels, out_channels, w_dim, conv_clamp=conv_clamp)
+
+    def forward(self, x, w):
+        return super().forward(x, w)[0]
+
+
 class SynthesisBlockFull(Layer):
     """Two synthesis layers + skip ToRGB + retain-feature merge."""
 

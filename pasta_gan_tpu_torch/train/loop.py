@@ -14,7 +14,10 @@ one row to `stats.jsonl` through `JsonlLogger`: {name: {num, mean, std}},
 `Progress/step`, which the JAX loop does not write.  Every `network_snapshot_ticks` ticks
 (tick > 0), and when the run ends, it saves a network snapshot of G_ema
 (`network-snapshot-<kimg>.pt`, what `cli/test.py` serves) and a train-state
-checkpoint (`train-state-latest.pt`, what `--resume` reads).  Unless
+checkpoint (`train-state-latest.pt`, what `--resume` reads).  `resume` is
+such a checkpoint (a zip file: the whole state is restored) or a network
+pickle (a legacy TF export or a reference snapshot: `io/transfer.py` copies
+the tensors whose names and shapes agree into the fresh state).  Unless
 `image_snapshot_ticks` is 0, it writes the image grids of `SnapshotGrids`
 once at the start and every `image_snapshot_ticks` ticks, tick 0 and the
 last included.
@@ -33,6 +36,7 @@ import queue
 import threading
 import time
 import traceback
+import zipfile
 from multiprocessing import shared_memory
 from typing import Dict, List, Optional
 
@@ -292,9 +296,14 @@ def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg
     trainer = GANTrainer(config, vgg=vgg, device=device, noise_seed=config.random_seed)
     state = trainer.init_state(torch.Generator().manual_seed(config.random_seed))
     if resume is not None:
-        restore_train_state(resume, state)
-        if verbose:
-            print(f'Resumed from "{resume}" at step {state.step}')
+        if zipfile.is_zipfile(resume):  # this package's train state (a torch.save zip)
+            restore_train_state(resume, state)
+            if verbose:
+                print(f'Resumed from "{resume}" at step {state.step}')
+        else:  # a network pickle: transfer learning, name and shape matches copy in
+            from ..io import transfer
+
+            transfer.transfer_from_network_pickle(state, resume, verbose=verbose)
 
     data_gen = torch.Generator().manual_seed(config.random_seed + 1)
     d_reg_interval = config.d_reg_interval or 0

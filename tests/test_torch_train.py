@@ -113,8 +113,11 @@ def pair():
 
 
 def make_pair(jcfg):
-    """`pair` for the JAX config `jcfg` (the port's config translated from it)."""
-    vgg_vars = jax.tree_util.tree_map(np.asarray, jax_init_vgg19(jax.random.PRNGKey(3), image_size=16))
+    """`pair` for the JAX config `jcfg` (the port's config translated from it);
+    without a VGG when `jcfg.loss.vgg_weight` is 0."""
+    with_vgg = jcfg.loss.vgg_weight > 0
+    vgg_vars = jax.tree_util.tree_map(np.asarray, jax_init_vgg19(jax.random.PRNGKey(3), image_size=16)) \
+        if with_vgg else None
     jt = JaxGANTrainer(jcfg, vgg_params=vgg_vars)
     b_np = numpy_batch()
     b_j = {k: jnp.asarray(v) for k, v in b_np.items()}
@@ -128,9 +131,12 @@ def make_pair(jcfg):
         ada_p=jnp.zeros(()), ada_signs_sum=jnp.zeros(()), ada_signs_count=jnp.zeros(()),
     )
 
-    vgg = VGG19Features()
-    vgg.load_state_dict(vgg19_state_dict_from_jax(vgg_vars, vgg.state_dict()), strict=True)
-    pt = GANTrainer(port_config(jcfg), vgg=vgg.requires_grad_(False).eval(), device="cpu")
+    vgg = None
+    if with_vgg:
+        vgg = VGG19Features()
+        vgg.load_state_dict(vgg19_state_dict_from_jax(vgg_vars, vgg.state_dict()), strict=True)
+        vgg = vgg.requires_grad_(False).eval()
+    pt = GANTrainer(port_config(jcfg), vgg=vgg, device="cpu")
     G, D = pt.build_networks()
     G.load_state_dict(state_dict_from_jax(g_vars, G.state_dict()), strict=True)
     D.load_state_dict(discriminator_state_dict_from_jax(d_vars, D.state_dict()), strict=True)
