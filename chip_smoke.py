@@ -155,6 +155,19 @@ Phases, each fatal on failure:
    the released-512 widths at batch 8 (bf16) timed, a thin one against the
    CPU; every up2/down2 class these forwards launch held to its plain
    version at max abs error 0.
+16. Zoo phase (`zoo`): each of the 20 classes of the generator zoo and the
+   ablations (`models.ZOO`) built through `models.build_model` at its
+   defaults (channel_base 16384, channel_max 512, 256x256; seeded weights),
+   its parameter count, one bf16 forward at batch 8 on random inputs of its
+   shapes (binary masks) with its launch counts set to 0 just before it
+   (`zoo_<class>`, up2 and down2 as `ZOO` predicts them), its outputs finite
+   and of their documented shapes, every up2/down2 class of that forward
+   equal to its plain version; the card against the CPU at a thin width
+   (channel_base 1024, channel_max 32; PatchDenormCat 16384 and 128; batch 2,
+   fp32, noise const), each
+   gating mask head's threshold placed in a gap of its logits first and the
+   binarised masks equal; V14, V17, V21 and NoCoarse timed (images/s, host
+   and device ms, busy share, bf16 against fp32).  It prints its seconds.
 Each path's launch counts are set to 0 just before it runs and read just
 after; each path must launch exactly its kernels (`PATH_KERNELS`).  The
 training phase also counts down2's launches by (pad, dtype, input shape) in
@@ -2483,6 +2496,36 @@ STOCK_BATCH, PLAIN_512_BATCH = 16, 8
 # down2 on the image at each of its 6 blocks 256 ... 8
 STOCK_UP2, D_SKIP_DOWN2, PLAIN_512_UP2 = 12, 6, 12
 GEN_RTOL, GEN_ATOL = 1e-2, 5e-3  # card vs CPU of a generator (tests/test_torch_generator.py's limits)
+# the zoo phase: class -> (up2, down2 launches of one forward, its outputs: i an image [B, 256, 256, 3], m a mask
+# [B, 256, 256, 1], h a mask [B, 128, 128, 1]).  Every pyramid block above 4x4 runs up2 twice (its up-conv's pre-FIR
+# and the image skip): 12 at 256; a block run a second time (V11's and V13's spade block, a texture block) 2 more,
+# V14's two spade blocks 4, V12's spade block (at 256, no up-conv, no skip) none.  down2 once a 1x1 down-conv: the
+# skip of each halving ResBlock of a denorm encoder (V10's three; V13's and V14's two; one in V11, V15, V17, V16/V20/
+# V21 and PatchDenorm; NoCoarse encodes two garments); the pyramid-only ablations have none.
+ZOO = {"GeneratorV10": (12, 3, "i"), "GeneratorV11": (14, 1, "iim"), "GeneratorV12": (12, 1, "iim"),
+       "GeneratorV13": (14, 2, "ih"), "GeneratorV14": (16, 2, "iim"), "GeneratorV15": (14, 1, "iim"),
+       "GeneratorV15_2": (14, 1, "iim"), "GeneratorV17": (14, 1, "iim"), "GeneratorV16": (14, 1, "iim"),
+       "GeneratorV20": (14, 1, "iim"), "GeneratorV21": (14, 1, "iimm"), "GeneratorRaw": (12, 0, "iii"),
+       "GeneratorPatch": (12, 0, "iii"), "GeneratorPatchDenorm": (14, 1, "iim"),
+       "GeneratorPatchDenormCat": (14, 1, "iim"),
+       "GeneratorRawFull": (12, 0, "iiii"), "GeneratorPatchFull": (12, 0, "iiii"),
+       "GeneratorAvgPatchFull": (12, 0, "iiii"), "GeneratorNoCoarse": (14, 2, "iiii"),
+       "GeneratorNoCoarseNoMask": (14, 2, "iiii")}
+# the ToRGB whose mask heads feed a `> 0.9` gate, and the heads' bias names (none: no gate)
+ZOO_GATES = {**{n: ("synthesis.b256.torgb", ("m_bias",)) for n in (
+    "GeneratorV11", "GeneratorV12", "GeneratorV14", "GeneratorV15", "GeneratorV15_2", "GeneratorV17", "GeneratorV16",
+    "GeneratorV20", "GeneratorPatchDenormCat")},
+    "GeneratorV13": ("synthesis.b128.torgb", ("m_bias",)),
+    "GeneratorV21": ("synthesis.b256.torgb", ("m_bias", "hm_bias")),
+    "GeneratorNoCoarse": ("synthesis.b256.torgb", ("m_bias1", "m_bias2"))}
+ZOO_BATCH, ZOO_TIMED = 8, ("GeneratorV14", "GeneratorV17", "GeneratorV21", "GeneratorNoCoarse")
+# the card-vs-CPU width; PatchDenormCat's concatenating blocks need channels(128) == 128 (the spade features' width)
+ZOO_THIN, ZOO_THIN_CAT = dict(channel_base=1024, channel_max=32), dict(channel_base=16384, channel_max=128)
+ZOO_RAW_STYLE = ("GeneratorRaw", "GeneratorRawFull")  # style encoders over the full-resolution garment
+GATE_LOGIT_STD = 6.0  # the card-vs-CPU gating heads' logits, spread as a trained mask head's are
+PATH_KERNELS.update({f"zoo_{name}": {"up2", "down2"} if down2 else {"up2"}
+                     for name, (_, down2, _) in ZOO.items()})
+
 D_RTOL, D_ATOL = 1e-4, 1e-5  # ... of D's logits (tests/test_torch_discriminator.py's)
 
 
@@ -2858,6 +2901,137 @@ def plain_512_phase(torch, ck, tag):
     return launches
 
 
+def zoo_inputs(torch, cls, nc, batch, g, device):
+    """Random inputs of a zoo class's forward after (z): the style stack at
+    `nc` channels (64x64, or 256x256 for the raw-garment encoders), retain 3
+    channels, pose 6, then each denorm garment (3 channels) and binary mask
+    (1 channel) its forward names, all NHWC fp32."""
+    import inspect
+
+    names = list(inspect.signature(cls.forward).parameters)
+    extra = names[names.index("pose") + 1 : names.index("truncation_psi")]
+    cr = 256 if cls.__name__ in ZOO_RAW_STYLE else 64
+    x = [torch.randn((batch, cr, cr, nc), generator=g) * 0.5, torch.randn((batch, 256, 256, 3), generator=g) * 0.5,
+         torch.randn((batch, 256, 256, 6), generator=g) * 0.5]
+    for name in extra:
+        x.append((torch.rand((batch, 256, 256, 1), generator=g) > 0.4).float() if "mask" in name
+                 else torch.randn((batch, 256, 256, 3), generator=g) * 0.5)
+    return [t.to(device) for t in x]
+
+
+def zoo_gate_gap(torch, gen, name, x):
+    """Spread each gating mask head's logits (its weight scaled to a standard
+    deviation of GATE_LOGIT_STD) and place the 0.9 threshold in the widest gap
+    of the logits within their 20-80 % quantiles, from one forward of `gen`
+    on `x`: a sigmoid mask is discontinuous at the threshold, so one ulp
+    between two devices would flip a pixel that lies on it."""
+    path, biases = ZOO_GATES[name]
+    torgb = gen.get_submodule(path)
+    caught = []
+    hook = torgb.register_forward_hook(lambda m, a, out: caught.append(out[1]))
+    with torch.no_grad():
+        gen(None, *x, noise_mode="const")
+    hook.remove()
+    heads = caught[0] if isinstance(caught[0], tuple) else (caught[0],)
+    for bias_name, m in zip(biases, heads):
+        bias = getattr(torgb, bias_name)
+        y = (torch.logit(m.double()) - float(bias.detach())).flatten().cpu()
+        y = y[torch.isfinite(y)]
+        scale = GATE_LOGIT_STD / float(y.std())
+        y = (y * scale).sort().values
+        lo, hi = int(0.2 * y.numel()) + 1, int(0.8 * y.numel()) - 1
+        k = lo + int(torch.argmax(y[lo + 1 : hi + 1] - y[lo:hi]))
+        with torch.no_grad():
+            getattr(torgb, bias_name.replace("bias", "weight")).mul_(scale)
+            bias.fill_(math.log(0.9 / 0.1) - 0.5 * float(y[k] + y[k + 1]))
+
+
+def zoo_phase(torch, ck, tag):
+    """zoo: every class of `models.ZOO` at its defaults, built through
+    `build_model` (seeded weights drawn on the card): one bf16 forward at
+    ZOO_BATCH with its launch counts set to 0 just before it (outputs finite
+    and of the shapes ZOO documents, launches as ZOO predicts), its FIR
+    classes held to their plain versions; the card against the CPU at a thin
+    width (ZOO_THIN), batch 2, fp32, noise const, after `zoo_gate_gap` (the
+    binarised masks equal); ZOO_TIMED timed at ZOO_BATCH (bf16; bf16 vs fp32
+    relative L2 of each image output).  Prints its seconds; returns the
+    paths' launches."""
+    from pasta_gan_tpu_torch import models
+
+    t0 = time.perf_counter()
+    launches = {}
+    shapes = {"i": (256, 256, 3), "m": (256, 256, 1), "h": (128, 128, 1)}
+    for i, cls in enumerate(models.ZOO):
+        name = cls.__name__
+        up2, down2, outs = ZOO[name]
+        with torch.device("cuda"):
+            gen = models.build_model(name)
+        gen.reset_parameters(torch.Generator(device="cuda").manual_seed(10 + i)).eval().set_dtype(torch.bfloat16)
+        n_params = sum(p.numel() for p in gen.parameters())
+        x = zoo_inputs(torch, cls, gen.config["style_input_nc"], ZOO_BATCH, torch.Generator().manual_seed(i), "cuda")
+
+        def forward():
+            with torch.no_grad():
+                out = gen(None, *x, noise_mode="const")
+            return out if isinstance(out, tuple) else (out,)
+
+        ck.reset_launch_counts()
+        out = forward()
+        torch.cuda.synchronize()
+        path = f"zoo_{name}"
+        launches[path] = ck.launch_counts()
+        check_launches(path, launches[path], {"up2": up2, "down2": down2})
+        assert [tuple(o.shape) for o in out] == [(ZOO_BATCH, *shapes[k]) for k in outs], (name, [o.shape for o in out])
+        assert all(bool(torch.isfinite(o).all()) for o in out), name
+        fir_classes_equal(torch, forward, f"zoo {name} (build_model defaults, {n_params / 1e6:.2f} M parameters) "
+                                          f"bf16 batch {ZOO_BATCH}", tag)
+        if name in ZOO_TIMED:
+            ms, _, _ = timed_forward(torch, forward, f"zoo {name} batch {ZOO_BATCH} bf16", tag, iters=5)
+            gen.set_dtype(torch.float32)
+            out32 = forward()
+            rels = [float((a.float() - b).norm() / b.norm()) for a, b, k in zip(out, out32, outs) if k == "i"]
+            print(f"zoo {name}: {ZOO_BATCH / ms * 1e3:.1f} images/s bf16; bf16 vs fp32 relative L2 of the image "
+                  f"outputs {', '.join(f'{r:.4g}' for r in rels)} (limit {BF16_REL_L2}) [{tag}]", flush=True)
+            assert max(rels) <= BF16_REL_L2, (name, rels)
+            del out32
+        del gen, out, x
+
+        width = ZOO_THIN_CAT if name == "GeneratorPatchDenormCat" else ZOO_THIN
+        thin = models.build_model(name, **width).reset_parameters(torch.Generator().manual_seed(10 + i)).eval()
+        x2 = zoo_inputs(torch, cls, thin.config["style_input_nc"], 2, torch.Generator().manual_seed(100 + i), "cpu")
+        thin.cuda()
+        if name in ZOO_GATES:
+            zoo_gate_gap(torch, thin, name, [t.cuda() for t in x2])
+
+        def run_thin(dev):
+            """The thin model's outputs on `dev` (to the CPU) and its gating masks."""
+            thin.to(dev)
+            caught = []
+            torgb = thin.get_submodule(ZOO_GATES[name][0]) if name in ZOO_GATES else None
+            hook = torgb.register_forward_hook(lambda m, a, o: caught.append(o[1])) if torgb else None
+            with torch.no_grad():
+                res = thin(None, *[t.to(dev) for t in x2], noise_mode="const")
+            if hook:
+                hook.remove()
+            heads = (caught[0] if isinstance(caught[0], tuple) else (caught[0],)) if caught else ()
+            return [t.cpu() for t in (res if isinstance(res, tuple) else (res,))], [m.cpu() > 0.9 for m in heads]
+
+        card_out, card_gates = run_thin("cuda")
+        cpu_out, cpu_gates = run_thin("cpu")
+        errs = [float((a - b).abs().max()) for a, b in zip(card_out, cpu_out)]
+        flips = sum(int((a != b).sum()) for a, b in zip(card_gates, cpu_gates))
+        print(f"zoo {name} card vs CPU (thin, batch 2, fp32, noise const): max abs error per output "
+              f"{', '.join(f'{e:.3g}' for e in errs)} (rtol {GEN_RTOL}, atol {GEN_ATOL}); gate pixels that differ "
+              f"{flips} [{tag}]", flush=True)
+        assert flips == 0, name
+        for a, b in zip(card_out, cpu_out):
+            torch.testing.assert_close(a, b, rtol=GEN_RTOL, atol=GEN_ATOL)
+        del thin
+        torch.cuda.empty_cache()
+    print(f"zoo: {len(models.ZOO)} classes in {time.perf_counter() - t0:.1f} s [{tag}]", flush=True)
+    return launches
+
+
 def metrics_conditional_phase(torch, ck, tag, tmp):
     """metrics_conditional: `cli.calc_metrics --conditional` with the fixture's
     UPT_subset1_256_192 test images laid flat as reals, each with its
@@ -2915,6 +3089,7 @@ def main():
     from pasta_gan_tpu_torch.ops import cuda_kernels as ck
     from pasta_gan_tpu_torch.ops import warp_kernels as wk
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tag = card_tag()
@@ -2949,6 +3124,7 @@ def main():
         launches.update(stock_phase(torch, ck, tag, pkl, expected))
         del expected
         launches.update(plain_512_phase(torch, ck, tag))
+        launches.update(zoo_phase(torch, ck, tag))
     train_card_vs_cpu(torch, tag)
     train_card_vs_cpu(torch, tag, "ADA debug percentile", ada="debug")
     train_card_vs_cpu(torch, tag, "ADA random draws", ada="random")
@@ -2967,6 +3143,7 @@ def main():
     ]
     assert sorted(k["name"] for k in kernels) == sorted(ck.KERNELS), "a kernel is missing from the kernels line"
     assert all(k["launches"] > 0 for k in kernels), "a kernel launched on no path"
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all [{tag}]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -1,13 +1,18 @@
 """JAX variables -> this package's state_dicts: GeneratorFull, GeneratorV18, Generator512,
-Generator512Plain, GeneratorStock, Discriminator (every architecture: the skip architecture's
-per-block and epilogue `fromrgb` carry by the same names), VGG19, and the metrics'
-SimpleConvFeatures; and a generator's int8 "quant_scales" collection -> its activation sites
+Generator512Plain, GeneratorStock, the V10-V21 generators and the ablations, Discriminator
+(every architecture: the skip architecture's per-block and epilogue `fromrgb` carry by the
+same names), VGG19, and the metrics' SimpleConvFeatures; and a generator's int8 "quant_scales" collection -> its activation sites
 (`quant_scales_from_jax`).
 
 The reverse of `pasta_gan_tpu/io/torch_import.py:_ref_key`, kept here so the
 port never imports the JAX package.  `variables` is the JAX package's nested
 dict ({"params": {...}}, with a generator's "buffers" beside it) with
 numpy (or array-like) leaves.
+
+Name translations beyond the Sequential children (`layers_N` -> N) and the encoders' stages:
+  synthesis_b64 (the zoo's flat top-level blocks) -> synthesis.b64
+  model_3, spade_encoder_1, feat_enc_0, spade_affine_0, mask_conv_N, merge_conv_N,
+  shortcut_N (the zoo's flat Sequential children) -> model.3, ...
 
 Layout translations:
   conv weight   HWIO            -> OIHW      (transpose 3, 2, 0, 1)
@@ -37,11 +42,18 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
+# the flat Sequential children of the zoo's encoders and blocks: model_3 -> model.3
+_SEQUENTIAL_CHILD = re.compile(r"(model|spade_encoder|feat_enc|spade_affine|mask_conv|merge_conv|shortcut)_(\d+)")
+
+
 def _module_name(comp: str, seg: str) -> str:
     """One JAX submodule name -> the reference's dotted name, in context."""
     m = re.fullmatch(r"layers_(\d+)", seg)
     if m:
         return m.group(1)
+    m = _SEQUENTIAL_CHILD.fullmatch(seg)
+    if m:
+        return f"{m.group(1)}.{m.group(2)}"
     if comp == "const_encoding":
         if seg == "stem":
             return "model.0"
@@ -70,7 +82,9 @@ def port_key(path: Tuple[str, ...]) -> Tuple[str, str]:
     names = []
     for i, seg in enumerate(mods):
         comp = mods[i - 1] if i > 0 else ""
-        names.append(_module_name(comp, seg))
+        m = re.fullmatch(r"synthesis_(.+)", seg) if i == 0 else None
+        # the V10-V17 clusters and the ablations name their synthesis blocks flat: synthesis_b64 -> synthesis.b64
+        names.append(f"synthesis.{m.group(1)}" if m else _module_name(comp, seg))
     if leaf == "kernel":  # flax Dense ([in, out]) or Conv (HWIO)
         return ".".join(names + ["weight"]), "dense"
     if leaf == "const":
@@ -79,9 +93,9 @@ def port_key(path: Tuple[str, ...]) -> Tuple[str, str]:
 
 
 def state_dict_from_jax(variables, expected: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-    """Translate JAX GeneratorFull, GeneratorV18, Generator512, Generator512Plain
-    or GeneratorStock `variables` into a port state_dict (the V18 mask heads `m_weight1` / `m_weight2` are
-    1x1 HWIO convs like every other weight; the "buffers" collection holds
+    """Translate a JAX generator's `variables` (GeneratorFull, GeneratorV18, Generator512,
+    Generator512Plain, GeneratorStock, a V10-V21 generator or an ablation) into a port
+    state_dict (the mask heads `m_weight*` / `hm_weight` are 1x1 HWIO convs like every other weight; the "buffers" collection holds
     each synthesis layer's `noise_const` map, a persistent buffer of the
     port).
 

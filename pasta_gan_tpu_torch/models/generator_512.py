@@ -21,16 +21,14 @@ pose, ...)` returns the image alone, NHWC.  It is not on a serving path.
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
 from torch import nn
 
 from ..nn.encoders import ConstEncoderNetwork, StyleEncoderNetworkV16
-from ..nn.layers import Layer
 from ..nn.mapping import MappingNetwork
 from ..nn.synthesis import SynthesisBlockFull
-from .generator_full import GeneratorFull, cat_feats_dict, nchw, nhwc
+from .generator_full import GeneratorBase, GeneratorFull, cat_feats_dict, nchw, nhwc
 
 
 class Generator512(GeneratorFull):
@@ -79,7 +77,7 @@ class _Synthesis512Plain(nn.Module):
         return img
 
 
-class Generator512Plain(nn.Module):
+class Generator512Plain(GeneratorBase):
     """The reference's `Generator_512` (`networks.py:3781-3816`); pass
     `style_input_nc=60` for `Generator_512_v2`."""
 
@@ -96,20 +94,6 @@ class Generator512Plain(nn.Module):
                                                   n_downsampling=n_down)
         self.style_encoding = StyleEncoderNetworkV16(style_input_nc, output_nc=512, ngf=64, extra_convs=0)
         self.set_dtype(dtype)
-
-    def set_dtype(self, dtype: torch.dtype) -> "Generator512Plain":
-        """Compute dtype of every layer (parameters stay float32)."""
-        self.dtype = dtype
-        for m in self.modules():
-            if isinstance(m, Layer):
-                m.compute_dtype = dtype
-        return self
-
-    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> "Generator512Plain":
-        for m in self.modules():
-            if isinstance(m, Layer):
-                m.reset_parameters(generator)
-        return self
 
     def forward(self, z, c, retain, pose, truncation_psi=1.0, truncation_cutoff=None, w_avg=None,
                 noise_mode="random", generator=None):

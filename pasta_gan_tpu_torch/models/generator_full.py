@@ -46,7 +46,26 @@ def cat_feats_dict(feats) -> Dict[str, torch.Tensor]:
     return {str(f.shape[2]): f for f in feats}
 
 
-class GeneratorFull(nn.Module):
+class GeneratorBase(nn.Module):
+    """A generator's compute dtype and seeded parameter reset, over every `Layer`."""
+
+    def set_dtype(self, dtype: torch.dtype):
+        """Compute dtype of every layer (parameters stay float32)."""
+        self.dtype = dtype
+        for m in self.modules():
+            if isinstance(m, Layer):
+                m.compute_dtype = dtype
+        return self
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        """Redraw every parameter from `generator`, in module order."""
+        for m in self.modules():
+            if isinstance(m, Layer):
+                m.reset_parameters(generator)
+        return self
+
+
+class GeneratorFull(GeneratorBase):
     variant = "full"  # a snapshot records it (cli/test.py:load_generator, models.GENERATORS)
     synthesis_variant = "full"  # the last style block's head (nn/synthesis.py:SynthesisNetworkFull.VARIANTS)
     start_res, merge_min_res, style_extra_convs = 4, 16, 3  # pyramid start, retain merge, style encoder depth
@@ -97,21 +116,6 @@ class GeneratorFull(nn.Module):
 
     def load_quant_scales(self, scales: Dict[str, torch.Tensor]) -> "GeneratorFull":
         q.load_quant_scales(self, scales)
-        return self
-
-    def set_dtype(self, dtype: torch.dtype) -> "GeneratorFull":
-        """Compute dtype of every layer (parameters stay float32)."""
-        self.dtype = dtype
-        for m in self.modules():
-            if isinstance(m, Layer):
-                m.compute_dtype = dtype
-        return self
-
-    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> "GeneratorFull":
-        """Redraw every parameter from `generator`, in module order."""
-        for m in self.modules():
-            if isinstance(m, Layer):
-                m.reset_parameters(generator)
         return self
 
     # -- sub-network entry points (the reference's G.style_encoding / G.const_encoding /

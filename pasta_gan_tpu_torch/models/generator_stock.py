@@ -21,7 +21,6 @@ them from a TF pickle.  `forward` takes z [N, z_dim] (and c) and returns
 from __future__ import annotations
 
 import math
-from typing import Optional
 
 import torch
 from torch import nn
@@ -30,6 +29,7 @@ from ..nn.layers import Conv2dLayer, Layer, _filter_buffer, _normal_
 from ..nn.mapping import MappingNetwork
 from ..nn.synthesis import SynthesisLayer, ToRGBLayer
 from ..ops.upfirdn2d import upsample2d
+from .generator_full import GeneratorBase
 
 ARCHITECTURES = ("orig", "skip", "resnet")
 
@@ -131,7 +131,7 @@ class SynthesisNetworkStock(nn.Module):
         return img
 
 
-class GeneratorStock(nn.Module):
+class GeneratorStock(GeneratorBase):
     """Mapping + stock synthesis; `io/tf_legacy.py:generator_kwargs_from_tf`'s
     kwargs land on these arguments as they are."""
 
@@ -146,20 +146,6 @@ class GeneratorStock(nn.Module):
         self.mapping = MappingNetwork(z_dim=z_dim, c_dim=c_dim, w_dim=w_dim, num_ws=self.num_ws,
                                       **(mapping_kwargs or {}))
         self.set_dtype(dtype)
-
-    def set_dtype(self, dtype: torch.dtype) -> "GeneratorStock":
-        """Compute dtype of every layer (parameters stay float32)."""
-        self.dtype = dtype
-        for m in self.modules():
-            if isinstance(m, Layer):
-                m.compute_dtype = dtype
-        return self
-
-    def reset_parameters(self, generator: Optional[torch.Generator] = None) -> "GeneratorStock":
-        for m in self.modules():
-            if isinstance(m, Layer):
-                m.reset_parameters(generator)
-        return self
 
     def forward(self, z, c=None, w_avg=None, truncation_psi=1.0, truncation_cutoff=None, noise_mode="random",
                 generator=None):

@@ -237,7 +237,7 @@ class SelfAttention(Layer):
 
     def reset_parameters(self, generator=None):
         for conv in (self.theta, self.phi, self.g, self.o):
-            _normal_(conv.weight, generator, 1.0 / math.sqrt(conv.in_channels))
+            _normal_(conv.weight, generator, 1.0 / math.sqrt(max(conv.in_channels, 1)))  # channels 0: an empty layer
         with torch.no_grad():
             self.gamma.zero_()
 

@@ -17,6 +17,12 @@ head whose argmax gives the SPADE branch its upper/lower masks) and "v18"
 directly, and the texture block builds and discards the same heads so the
 parameter shapes match the checkpoint).
 
+`SynthesisNetworkSingle` is the single-garment pyramid of the V15/V16/V20
+and V21 clusters: one denorm branch, SPADE blocks at `feat_multiplier=1`, a
+sigmoid clothes-mask head on every skip block ("v16") or clothes and hand
+mask heads on the last blocks with the hand region of the SPADE features
+filled with the average face feature ("v21").
+
 int8 serving (ops/quant.py), as in the JAX package: a `SynthesisLayer`
 quantizes its modulated activation at its own site, where
 `modulated_conv2d` runs the conv int8 (the stride-1 convs and the up-convs
@@ -43,7 +49,10 @@ from .spade import SpadeResBlock
 
 
 class SynthesisLayer(Layer):
-    """Modulated conv + optional per-pixel noise + bias_act."""
+    """Modulated conv + optional per-pixel noise + bias_act; `spade_styles`
+    ([N, in_channels, H, W]) are averaged with the channel styles
+    (`ops/modulated_conv2d.py`), as the spade-modulated layers of the V10-V14
+    clusters do."""
 
     def __init__(self, in_channels, out_channels, w_dim, resolution, kernel_size=3, up=1,
                  use_noise=True, activation="lrelu", resample_filter=(1, 3, 3, 1), conv_clamp=None):
@@ -76,7 +85,7 @@ class SynthesisLayer(Layer):
             _normal_(self.noise_const, generator)
 
     def forward(self, x, w, noise_mode: str = "random", gain: float = 1.0,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None, spade_styles: Optional[torch.Tensor] = None):
         if noise_mode not in ("random", "const", "none"):
             raise ValueError(f"noise_mode must be 'random', 'const' or 'none', got {noise_mode!r}")
         dt = self.compute_dtype
@@ -90,7 +99,7 @@ class SynthesisLayer(Layer):
             noise = (self.noise_const * self.noise_strength).to(dt)[None, None]
         x = modulated_conv2d(
             x.to(dt), self.weight.to(dt), styles, noise=noise, up=self.up,
-            padding=self.kernel_size // 2,
+            padding=self.kernel_size // 2, spade_styles=spade_styles,
             resample_filter=self.resample_filter if self.up > 1 else None,
             flip_weight=(self.up == 1), quant=self.quant, quant_site=self.act_scale,
         )
@@ -100,14 +109,17 @@ class SynthesisLayer(Layer):
 
 
 class ToRGBLayerFull(Layer):
-    """1x1 modulated conv without demodulation, plus an optional head on the
-    last style block: `head="parsing6"`, 6 parsing logits (`m_weight1`), or
-    `head="masks2"`, upper and lower sigmoid masks (`m_weight1`,
-    `m_weight2`).  All heads run as one conv over concatenated output
-    channels; each gets its own bias_act."""
+    """1x1 modulated conv without demodulation, plus an optional head:
+    `head="parsing6"`, 6 parsing logits (`m_weight1`); `head="masks2"`, upper
+    and lower sigmoid masks (`m_weight1`, `m_weight2`); `head="mask1"`, one
+    sigmoid clothes mask (`m_weight`); `head="masks_hand"`, clothes and hand
+    sigmoid masks (`m_weight`, `hm_weight`).  All heads run as one conv over
+    concatenated output channels; each gets its own bias_act."""
 
     HEADS = {None: (), "parsing6": (("m_weight1", "m_bias1", 6, "linear"),),
-             "masks2": (("m_weight1", "m_bias1", 1, "sigmoid"), ("m_weight2", "m_bias2", 1, "sigmoid"))}
+             "masks2": (("m_weight1", "m_bias1", 1, "sigmoid"), ("m_weight2", "m_bias2", 1, "sigmoid")),
+             "mask1": (("m_weight", "m_bias", 1, "sigmoid"),),
+             "masks_hand": (("m_weight", "m_bias", 1, "sigmoid"), ("hm_weight", "hm_bias", 1, "sigmoid"))}
 
     def __init__(self, in_channels, out_channels, w_dim, conv_clamp=None, head=None):
         super().__init__()
@@ -133,8 +145,8 @@ class ToRGBLayerFull(Layer):
                 getattr(self, name_b).zero_()
 
     def forward(self, x, w):
-        """Returns (img, aux): aux is None, the parsing logits, or the
-        (upper, lower) mask pair."""
+        """Returns (img, aux): aux is None, the head's output, or the tuple of
+        its two masks."""
         dt = self.compute_dtype
         styles = self.affine(w) * (1.0 / math.sqrt(self.in_channels))
         weight = torch.cat([self.weight] + [getattr(self, hw) for hw, _, _, _ in self.heads], 0)
@@ -160,11 +172,13 @@ class ToRGBLayer(ToRGBLayerFull):
 
 
 class SynthesisBlockFull(Layer):
-    """Two synthesis layers + skip ToRGB + retain-feature merge."""
+    """Two synthesis layers + skip ToRGB + retain-feature merge.  The ToRGB
+    carries `head` on the last style block, or on every block with
+    `head_always`."""
 
     def __init__(self, in_channels, out_channels, w_dim, resolution, img_channels, is_last,
                  is_style=False, merge_min_res=16, cat_channels=64, resample_filter=(1, 3, 3, 1),
-                 conv_clamp=None, use_noise=True, head="parsing6"):
+                 conv_clamp=None, use_noise=True, head="parsing6", head_always=False):
         super().__init__()
         self.in_channels, self.resolution, self.merge_min_res = in_channels, resolution, merge_min_res
         common = dict(w_dim=w_dim, resolution=resolution, resample_filter=resample_filter,
@@ -178,7 +192,7 @@ class SynthesisBlockFull(Layer):
             self.merge_conv = Conv2dLayer(out_channels + cat_channels, out_channels, 1,
                                           resample_filter=resample_filter, quant_site=True)
         self.torgb = ToRGBLayerFull(out_channels, img_channels, w_dim, conv_clamp=conv_clamp,
-                                    head=head if is_last and is_style else None)
+                                    head=head if (is_last and is_style) or head_always else None)
         _filter_buffer(self, resample_filter)
         self.reset_parameters()
 
@@ -320,3 +334,119 @@ class SynthesisNetworkFull(QuantMode, nn.Module):
         if self.variant == "v18":
             return img, finetune_img, (upper_mask, lower_mask)
         return img, finetune_img, aux
+
+
+class SynthesisNetworkSingle(nn.Module):
+    """Single-denorm-branch pyramid of the V15/V16/V20 ("v16") and V21
+    ("v21") clusters.
+
+    Differences from SynthesisNetworkFull: one garment branch (clothes and
+    its mask), SPADE blocks at feat_multiplier=1; "v16" has a sigmoid
+    clothes-mask head on every skip block and returns (img, finetune_img,
+    mask); "v21" has clothes and hand mask heads on the last blocks, fills
+    the hand region of the SPADE features with the average face feature
+    (`face_encoder` over the retain features at the second-to-last
+    resolution, masked by `face_mask`) and returns (img, finetune_img, mask,
+    h_mask).  NCHW."""
+
+    VARIANTS = {"v16": ("mask1", True), "v21": ("masks_hand", False)}  # variant -> (head, head_always)
+
+    def __init__(self, w_dim, img_resolution, img_channels, channel_base=32768, channel_max=512,
+                 conv_clamp=None, use_noise=True, variant="v16"):
+        super().__init__()
+        if variant not in self.VARIANTS:
+            raise ValueError(f"variant must be one of {sorted(self.VARIANTS)}, got {variant!r}")
+        self.w_dim, self.img_resolution, self.variant = w_dim, img_resolution, variant
+        self.channel_base, self.channel_max = channel_base, channel_max
+        self.block_resolutions = [2**i for i in range(2, int(math.log2(img_resolution)) + 1)]
+        head, head_always = self.VARIANTS[variant]
+        common = dict(w_dim=w_dim, img_channels=img_channels, conv_clamp=conv_clamp, use_noise=use_noise,
+                      head=head, head_always=head_always)
+        for res in self.block_resolutions:
+            setattr(self, f"b{res}", SynthesisBlockFull(
+                self.channels(res // 2) if res > 4 else 0, self.channels(res), resolution=res,
+                is_last=res == img_resolution, is_style=True, **common))
+        ch = self.channels(self.block_resolutions[-2])
+        for i in (1, 2, 3):
+            setattr(self, f"spade_b128_{i}", SpadeResBlock(ch, ch, resolution=128, feat_multiplier=1))
+        res = self.block_resolutions[-1]
+        self.texture_b256 = SynthesisBlockFull(self.channels(res // 2), self.channels(res), resolution=res,
+                                               is_last=True, is_style=True, **common)
+        ngf = 64
+        self.spade_encoder = nn.Sequential(
+            Conv2dLayer(3, ngf, 7, activation="relu"),
+            ResBlock(ngf, ngf, activation="relu"),
+            ResBlock(ngf, ngf * 2, activation="relu", down=2),
+        )
+        if variant == "v21":
+            self.face_encoder = Conv2dLayer(64, 128, 1)
+
+    def channels(self, res: int) -> int:
+        return min(self.channel_base // res, self.channel_max)
+
+    @property
+    def blocks(self):
+        return [getattr(self, f"b{res}") for res in self.block_resolutions]
+
+    @property
+    def num_ws(self) -> int:
+        return sum(1 if res == 4 else 2 for res in self.block_resolutions) + 1
+
+    def forward(self, ws, pose_feat, cat_feat, denorm_clothes, denorm_mask, face_mask=None,
+                noise_mode="random", generator=None):
+        if ws.shape[1] != self.num_ws:
+            raise ValueError(f"ws has {ws.shape[1]} entries, expected {self.num_ws}")
+        if self.variant == "v21" and face_mask is None:
+            raise ValueError("the v21 variant needs face_mask")
+        block_ws = []
+        w_idx = 0
+        for block in self.blocks:
+            block_ws.append(ws[:, w_idx : w_idx + block.num_conv + block.num_torgb])
+            w_idx += block.num_conv
+
+        x = img = aux = x_128 = img_128 = None
+        for res, block, cur_ws in zip(self.block_resolutions, self.blocks, block_ws):
+            x, img, cur_aux = block(x, img, cur_ws, pose_feat, cat_feat, noise_mode, generator)
+            if cur_aux is not None:
+                aux = cur_aux
+            if res == self.block_resolutions[-2]:
+                x_128, img_128 = x, img
+        if self.variant == "v21":
+            mask, h_mask = aux[0].detach(), aux[1].detach()
+        else:
+            mask, h_mask = aux.detach(), None
+
+        # the spade feature: the valid-region average fills the person-visible,
+        # garment-missing pixels (per sample; fewer than 11 valid pixels average over all)
+        dt = denorm_clothes.dtype
+        mask_t = (mask > 0.9).to(dt)
+        mask_128 = (mask_t[:, :, ::2, ::2] > 0.9).to(dt)
+        denorm_mask_128 = (denorm_mask[:, :, ::2, ::2] > 0.9).to(dt)
+        valid_mask = ((mask_128 + denorm_mask_128) == 2.0).to(dt)
+        res_mask = mask_128 - valid_mask
+        feat = self.spade_encoder(denorm_clothes * mask_t - (1.0 - mask_t))
+        feat_hw = feat.shape[2] * feat.shape[3]
+        valid_sum = (feat * valid_mask).sum(dim=(2, 3), keepdim=True)
+        vmask_sum = valid_mask.sum(dim=(2, 3), keepdim=True)
+        vidx = (vmask_sum > 10).to(dt)
+        vmask_sum = vmask_sum * vidx + feat_hw * (1.0 - vidx)
+        spade_feat = feat * (1.0 - res_mask) + (valid_sum / vmask_sum) * res_mask
+
+        if self.variant == "v21":  # hand regions take the average face feature
+            face_feat = self.face_encoder(cat_feat[str(self.block_resolutions[-2])])
+            fm_128 = (face_mask[:, :, ::2, ::2] > 0.9).to(dt)
+            f_sum = (face_feat * fm_128).sum(dim=(2, 3), keepdim=True)
+            fm_sum = fm_128.sum(dim=(2, 3), keepdim=True)
+            fidx = (fm_sum > 10).to(dt)
+            fm_sum = fm_sum * fidx + feat_hw * (1.0 - fidx)
+            hm_256 = (h_mask > 0.9).to(dt)
+            hm_128 = (hm_256[:, :, ::2, ::2] > 0.9).to(dt)
+            spade_feat = spade_feat * (1.0 - hm_128) + (f_sum / fm_sum) * hm_128
+
+        h = self.spade_b128_1(x_128, spade_feat)
+        h = self.spade_b128_2(h, spade_feat)
+        h = self.spade_b128_3(h, spade_feat)
+        _, finetune_img, _ = self.texture_b256(h, img_128, block_ws[-1], pose_feat, cat_feat, noise_mode, generator)
+        if self.variant == "v21":
+            return img, finetune_img, mask, h_mask
+        return img, finetune_img, mask
