@@ -2276,6 +2276,17 @@ def graph_flops(torch, module, x):
     return total[0]
 
 
+def counted_flops(torch, fn):
+    """FLOPs of one fn() as torch.utils.flop_counter counts them: its
+    convolutions (transposed ones included) and matmuls, two per
+    multiply-add; the FIR kernels' taps and elementwise work are not counted."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return counter.get_total_flops()
+
+
 def check_launches(path, counts, expected):
     """The path launched exactly its kernels, each exactly `expected` times."""
     ran = {name for name, n in counts.items() if n > 0}
@@ -3079,6 +3090,365 @@ def metrics_conditional_phase(torch, ck, tag, tmp):
     return launches
 
 
+
+# the flow generator V1 (v1_flow): one forward launches up2 twice in each block above 4x4 (the up-conv's pre-FIR and
+# the image skip), 6 blocks 8 ... 256; it has no SPADE branch and its encoders' 3x3 down-convs filter on the plain
+# path, so no down2 (12 and 0 counted on the CPU with a counting _up2_apply / _down2_apply)
+V1_BATCH, V1_UP2 = 8, 12
+V1_THIN = dict(channel_base=1024, channel_max=32)  # the card-vs-CPU width (FlowNet keeps its fixed widths)
+V1_OFFSET_STD = 3.0  # pixels: the flow head is scaled so that random weights' offsets spread this far
+V1_IN_FRAME = 0.8  # share of the warp's samples that must land inside the frame
+FLOW_MEAN_REL, FLOW_MAX_REL = 1e-3, 5e-2  # the flow grid's normalized error (tests/test_v1_parity.py's limits)
+SN_ATOL = 1e-5  # u and v after one power iteration, card vs CPU
+# the patch discriminators (patch_d) at their defaults: patch 64, so 4 halving ResBlocks, each with a 1x1 skip
+# down-conv (down2; its gradient is up2).  V1 samples real and fake (8 down2 forward), V2 the fake alone (4); the
+# backward reaches every skip (pred_fake reads both branches): 8 + 4 up2
+PD_BATCH, PD_LEVELS = 16, 4
+PD_DOWN2 = PD_UP2 = 3 * PD_LEVELS
+PD_THIN = dict(scale_capacity=1.0, max_nc=64, patch_size=32)
+# the thin patch discriminators' gradient to the fake image, card vs CPU (relative L2).  With cuDNN off (PyTorch's
+# own CUDA convolutions) it reads ~1e-6 and is held to PD_GRAD_REL_NO_CUDNN: the port's own check.  With cuDNN on,
+# the library's heuristic picks FFT convolutions for fp32 backward passes (the phase prints their kernels), whose
+# rounding puts it at 9.46e-4 on an H100; PD_GRAD_REL_CUDNN is ten times that reading, so that another algorithm
+# choice of cuDNN's does not fail the check, while a fault of the port (a wrong tap, tile or draw) reads of order 1
+PD_GRAD_REL_NO_CUDNN, PD_GRAD_REL_CUDNN = 1e-5, 1e-2
+HOST_ROUTE_CLOSE, HOST_ROUTE_MEAN = 0.995, 2e-3  # tests/test_host_router.py:_compare's criterion
+PATH_KERNELS.update({"v1_flow": {"up2"}, "patch_d": {"up2", "down2"}, "host_routing": {"norm_warp", "composite"}})
+
+
+def v1_inputs(torch, batch, g, device, res=256):
+    """GeneratorV1's inputs after z, NHWC: the 48-channel style stack at a
+    quarter of the resolution, retain 3, pose 6, aff_pose 3, aff_top 3,
+    lower 3."""
+    shapes = [(res // 4, res // 4, 48), (res, res, 3), (res, res, 6), (res, res, 3), (res, res, 3), (res, res, 3)]
+    return [(torch.randn((batch, *s), generator=g) * 0.5).to(device) for s in shapes]
+
+
+def scale_flow_head(torch, gen, x):
+    """Scale the flow head `flownet.flow3` so that the offsets of `x` spread
+    by V1_OFFSET_STD pixels: random spectral + batch-statistics stacks reach
+    offsets of order 1e8, which clamps every sample to the border.  Returns
+    the unscaled spread."""
+    with torch.no_grad():
+        std = float(gen.flownet.offset(gen.flow_input(*x[2:])).float().std())
+        gen.flownet.flow3.weight.mul_(V1_OFFSET_STD / std)
+        gen.flownet.flow3.bias.mul_(V1_OFFSET_STD / std)
+    return std
+
+
+def flow_errors(torch, grid, ref):
+    """(mean, max) |grid - ref| over mean |ref|."""
+    d, denom = (grid - ref).abs(), ref.abs().mean()
+    return float(d.mean() / denom), float(d.max() / denom)
+
+
+def v1_phase(torch, ck, tag):
+    """v1_flow: GeneratorV1 through `build_model` at its defaults (256x256,
+    channel_base 32768, channel_max 512, 48-channel style stack, FlowNet(12);
+    seeded weights drawn on the card, the flow head scaled by
+    `scale_flow_head`), one bf16 and one fp32 forward at V1_BATCH with the
+    launch counts set to 0 just before them, its FIR classes held to their
+    plain versions, both timed, bf16 against fp32; the card against the CPU
+    at V1_THIN, batch 2, fp32, noise const, on one state (u and v included):
+    the flow grid by normalized error and the image within the generator
+    limits, once in eval and once with `update_sn`, whose u and v must agree.
+    Returns the path's launches."""
+    from pasta_gan_tpu_torch import models
+
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        gen = models.build_model("GeneratorV1")
+    gen.reset_parameters(torch.Generator(device="cuda").manual_seed(21)).eval()
+    n_params = sum(p.numel() for p in gen.parameters())
+    x = v1_inputs(torch, V1_BATCH, torch.Generator().manual_seed(21), "cuda")
+    raw_std = scale_flow_head(torch, gen, x)
+
+    def forward():
+        with torch.no_grad():
+            return gen(None, *x, noise_mode="const")
+
+    ck.reset_launch_counts()
+    outs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        gen.set_dtype(dt)
+        outs[dt] = forward().float()
+    torch.cuda.synchronize()
+    launches = ck.launch_counts()
+    check_launches("v1_flow", launches, {"up2": 2 * V1_UP2})
+    with torch.no_grad():
+        grid = gen.flow(*x[2:])
+    inside = float((grid.abs() <= 1).all(-1).float().mean())
+    for out in outs.values():
+        assert tuple(out.shape) == (V1_BATCH, 256, 256, 3) and bool(torch.isfinite(out).all())
+    rel = float((outs[torch.bfloat16] - outs[torch.float32]).norm() / outs[torch.float32].norm())
+    print(f"v1_flow: GeneratorV1 (build_model defaults, {n_params / 1e6:.2f} M parameters), batch {V1_BATCH}: "
+          f"unscaled offset spread {raw_std:.4g} px, scaled to {V1_OFFSET_STD}; {inside:.3f} of the samples in the "
+          f"frame; bf16 vs fp32 relative L2 of the image {rel:.4g} (BF16_REL_L2 {BF16_REL_L2}) [{tag}]", flush=True)
+    flops = counted_flops(torch, forward)
+    for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        gen.set_dtype(dt)
+        fir_classes_equal(torch, forward, f"v1_flow {name} batch {V1_BATCH}", tag)
+        ms, device_ms, _ = timed_forward(torch, forward, f"v1_flow GeneratorV1 batch {V1_BATCH} {name}", tag, iters=5)
+        rate = "not measured" if device_ms is None else f"{flops / device_ms / 1e9:.1f} TFLOP/s at the device ms"
+        print(f"v1_flow {name}: {V1_BATCH / ms * 1e3:.1f} images/s; {flops / 1e9:.1f} GFLOP a forward counted "
+              f"(convolutions and matmuls), {rate} [{tag}]", flush=True)
+    del gen, outs, x, grid
+    torch.cuda.empty_cache()
+
+    thin = models.build_model("GeneratorV1", **V1_THIN).reset_parameters(torch.Generator().manual_seed(22)).eval()
+    x2 = v1_inputs(torch, 2, torch.Generator().manual_seed(23), "cpu")
+    scale_flow_head(torch, thin, x2)
+    state = {k: t.clone() for k, t in thin.state_dict().items()}
+
+    def run(dev, update_sn):
+        thin.load_state_dict(state)
+        thin.to(dev).flownet.set_update_sn(update_sn)
+        xs = [t.to(dev) for t in x2]
+        with torch.no_grad():
+            grid = thin.flow(*xs[2:]).cpu()
+            img = thin(None, *xs, noise_mode="const").cpu()
+        sn = {k: t.cpu().clone() for k, t in thin.state_dict().items() if k.endswith(("weight_u", "weight_v"))}
+        return grid, img, sn
+
+    for update_sn in (False, True):
+        (grid_c, img_c, sn_c), (grid_g, img_g, sn_g) = run("cpu", update_sn), run("cuda", update_sn)
+        mean_rel, max_rel = flow_errors(torch, grid_g, grid_c)
+        inside = float((grid_c.abs() <= 1).all(-1).float().mean())
+        sn_err = max(float((sn_g[k] - sn_c[k]).abs().max()) for k in sn_c)
+        moved = max(float((sn_c[k] - state[k]).abs().max()) for k in sn_c)
+        print(f"v1_flow card vs CPU (thin, batch 2, fp32, noise const, update_sn {update_sn}): flow grid normalized "
+              f"error mean {mean_rel:.3g} max {max_rel:.3g} (limits {FLOW_MEAN_REL}, {FLOW_MAX_REL}); {inside:.3f} of "
+              f"the samples in the frame; image max abs error {float((img_g - img_c).abs().max()):.3g} (rtol "
+              f"{GEN_RTOL}, atol {GEN_ATOL}); u, v max abs error {sn_err:.3g} (limit {SN_ATOL}), moved {moved:.3g} "
+              f"[{tag}]", flush=True)
+        assert mean_rel <= FLOW_MEAN_REL and max_rel <= FLOW_MAX_REL and inside >= V1_IN_FRAME
+        torch.testing.assert_close(img_g, img_c, rtol=GEN_RTOL, atol=GEN_ATOL)
+        assert sn_err <= SN_ATOL and (moved > 0) == update_sn
+    del thin
+    torch.cuda.empty_cache()
+    print(f"v1_flow: {time.perf_counter() - t0:.1f} s [{tag}]", flush=True)
+    return {"v1_flow": launches}
+
+
+def patch_d_step(torch, D, D2, real, fake, draws, draws2):
+    """One forward and backward of both patch discriminators: V1 on (real,
+    fake) and V2 on the fake, a non-saturating loss of each, gradients to
+    the fake image and every parameter.  Returns (V1 logits, V2 logits,
+    d loss / d fake)."""
+    import torch.nn.functional as F
+
+    f = fake.detach().requires_grad_(True)
+    pred_real, pred_fake = D(real, f, draws=draws)
+    pred2 = D2(f, draws=draws2)
+    loss = F.softplus(pred_fake).mean() + F.softplus(-pred_real).mean() + F.softplus(pred2).mean()
+    D.zero_grad(set_to_none=True)
+    D2.zero_grad(set_to_none=True)
+    loss.backward()
+    return torch.cat([pred_real, pred_fake], 1), pred2, f.grad
+
+
+def patch_d_phase(torch, ck, tag):
+    """patch_d: StyleGAN2PatchDiscriminator and its V2 at their defaults
+    (capacity 4, max_nc 384, patch 64, 8 tiles; seeded weights drawn on the
+    card) on real and fake [PD_BATCH, 3, 256, 256] frames, forward and
+    backward (`patch_d_step`) with the launch counts set to 0 just before it;
+    the draws come from one CPU generator; its FIR classes held to their
+    plain versions; timed, with its peak memory; the card against the CPU at
+    PD_THIN on the same draws, with cuDNN on and off: logits within D's
+    limits, the parameters' gradients within GRAD_REL_L2, the gradient to the
+    fake image within PD_GRAD_REL_CUDNN (cuDNN on; its FFT kernels printed)
+    and PD_GRAD_REL_NO_CUDNN (off).  Returns the path's launches."""
+    from pasta_gan_tpu_torch.nn.patch_discriminator import (
+        StyleGAN2PatchDiscriminator,
+        StyleGAN2PatchDiscriminatorV2,
+    )
+
+    t0 = time.perf_counter()
+
+    def build(cfg, device, seed):
+        g = torch.Generator(device=device).manual_seed(seed)
+        with torch.device(device):
+            return [cls(**cfg).reset_parameters(g) for cls in (StyleGAN2PatchDiscriminator,
+                                                               StyleGAN2PatchDiscriminatorV2)]
+
+    def frames(batch, device):
+        g = torch.Generator().manual_seed(31)
+        return [(torch.rand((batch, 3, 256, 256), generator=g) * 2 - 1).to(device) for _ in range(2)]
+
+    D, D2 = build({}, "cuda", 31)
+    n_params = sum(p.numel() for p in D.parameters()) + sum(p.numel() for p in D2.parameters())
+    real, fake = frames(PD_BATCH, "cuda")
+    g = torch.Generator().manual_seed(32)
+    draws = (D.draw_patches(PD_BATCH, 256, 256, g), D.draw_patches(PD_BATCH, 256, 256, g))
+    draws2 = (D2.draw_patches(PD_BATCH, 256, 256, g), None)
+
+    def step():
+        return patch_d_step(torch, D, D2, real, fake, draws, draws2)
+
+    ck.reset_launch_counts()
+    out = step()
+    torch.cuda.synchronize()
+    launches = ck.launch_counts()
+    check_launches("patch_d", launches, {"down2": PD_DOWN2, "up2": PD_UP2})
+    T = D.tile_grid(256, 256)[2]
+    assert tuple(out[0].shape) == (PD_BATCH, 2 * T) and tuple(out[1].shape) == (PD_BATCH * T, 1)
+    assert all(bool(torch.isfinite(o).all()) for o in out) and float(out[2].abs().sum()) > 0
+    fir_classes_equal(torch, step, f"patch_d forward + backward batch {PD_BATCH}", tag)
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms, _, _ = timed_forward(torch, step, f"patch_d V1 + V2 forward + backward, batch {PD_BATCH} fp32 "
+                                          f"({n_params / 1e6:.2f} M parameters)", tag, iters=5)
+    print(f"patch_d: forward + backward {ms:.2f} ms a step, peak {peak:.2f} GB allocated [{tag}]", flush=True)
+    del D, D2, real, fake, out
+    torch.cuda.empty_cache()
+
+    g = torch.Generator().manual_seed(34)
+    Dc, D2c = build(PD_THIN, "cpu", 33)
+    draws = (Dc.draw_patches(2, 256, 256, g), Dc.draw_patches(2, 256, 256, g))
+    draws2 = (D2c.draw_patches(2, 256, 256, g), None)
+
+    def thin_step(dev, cudnn=True):
+        """(logits, V2 logits, gradient to the fake image, parameter gradients), moved to the CPU."""
+        Dt, D2t = [m.to(dev) for m in build(PD_THIN, "cpu", 33)]
+        torch.backends.cudnn.enabled = cudnn
+        try:
+            logits, logits2, grad = patch_d_step(torch, Dt, D2t, *frames(2, dev), draws, draws2)
+        finally:
+            torch.backends.cudnn.enabled = True
+        params = torch.cat([p.grad.flatten() for m in (Dt, D2t) for p in m.parameters()])
+        return [t.detach().cpu() for t in (logits, logits2, grad, params)]
+
+    cpu = thin_step("cpu")
+    _, _, top = device_profile(torch, lambda: thin_step("cuda"), iters=1, top=10_000)
+    fft = [(op, op_ms) for op, op_ms, _ in top if "fft" in op.lower()]
+    print(f"patch_d thin step with cuDNN on: {len(fft)} of its {len(top)} device kernel names hold 'fft', "
+          f"{sum(op_ms for _, op_ms in fft):.3f} ms: {sorted({op.split('<')[0] for op, _ in fft})} [{tag}]", flush=True)
+    for cudnn, grad_limit in ((True, PD_GRAD_REL_CUDNN), (False, PD_GRAD_REL_NO_CUDNN)):
+        card = thin_step("cuda", cudnn)
+        g_rel, p_rel = (float((card[i] - cpu[i]).norm() / cpu[i].norm()) for i in (2, 3))
+        print(f"patch_d card vs CPU (capacity 1, max_nc 64, patch 32, batch 2, fp32, the same draws, cuDNN "
+              f"{'on' if cudnn else 'off'}): logits max abs error {float((card[0] - cpu[0]).abs().max()):.3g}, V2 "
+              f"{float((card[1] - cpu[1]).abs().max()):.3g} (rtol {D_RTOL}, atol {D_ATOL}); gradient to the fake image "
+              f"relative L2 {g_rel:.3g} (limit {grad_limit}), to the parameters {p_rel:.3g} (limit {GRAD_REL_L2}) "
+              f"[{tag}]", flush=True)
+        torch.testing.assert_close(card[0], cpu[0], rtol=D_RTOL, atol=D_ATOL)
+        torch.testing.assert_close(card[1], cpu[1], rtol=D_RTOL, atol=D_ATOL)
+        assert g_rel <= grad_limit and p_rel <= GRAD_REL_L2
+    print(f"patch_d: {time.perf_counter() - t0:.1f} s [{tag}]", flush=True)
+    return {"patch_d": launches}
+
+
+def route_agreement(torch, host, dev, keys):
+    """The JAX host-route test's criterion between a host route's dict and a
+    device route's RoutedPatches; returns the worst (share close, mean |d|)."""
+    worst = (1.0, 0.0)
+    for k in keys:
+        a, b = torch.as_tensor(host[k]).float(), getattr(dev, k).float().cpu()
+        close = float(torch.isclose(a, b, rtol=1e-3, atol=2e-3).float().mean())
+        mean = float((a - b).abs().mean())
+        assert close >= HOST_ROUTE_CLOSE and mean < HOST_ROUTE_MEAN, (k, close, mean)
+        worst = (min(worst[0], close), max(worst[1], mean))
+    return worst
+
+
+def host_routing_phase(torch, ck, tag):
+    """host_routing: `route_patches_host_transfer_batch` over the fixture's 16
+    test pairs and `HostRoutingPipeline(training_route_fn())` over 32
+    synthetic samples (2 batches of 16), each held to the card's device
+    route of the same batch (the launches counted) by the JAX host-route
+    test's criterion; host ms a batch at 1, 4 and all of the machine's
+    threads beside the device route's ms.  Returns the path's launches."""
+    from pasta_gan_tpu_torch.data import dataset as tds
+    from pasta_gan_tpu_torch.data import host_router as hr
+    from pasta_gan_tpu_torch.data.warp import route_patches_batch, route_patches_transfer_batch
+
+    t0 = time.perf_counter()
+    keys = ("norm_img", "norm_img_lower", "denorm_upper_img", "denorm_lower_img", "norm_clothes_masks",
+            "denorm_hand_masks")
+    ds = tds.UvitonDataset256Test(fixture_root())
+    items = [ds[i] for i in range(len(ds))]
+    person, garment = tds.collate([it["person"] for it in items]), tds.collate([it["garment"] for it in items])
+    cpu_args = tds._tryon_sources(person, garment, "cpu")
+    np_args = [t.numpy() for t in cpu_args]
+    card_args = [t.cuda() for t in cpu_args]
+    host = hr.route_patches_host_transfer_batch(*np_args)
+    ck.reset_launch_counts()
+    dev = route_patches_transfer_batch(*card_args)
+    torch.cuda.synchronize()
+    launches = ck.launch_counts()
+    close, mean = route_agreement(torch, host, dev, keys)
+    print(f"host_routing: the fixture's {len(items)} test pairs, host transfer route vs the card's: worst share "
+          f"close {close:.5f} (>= {HOST_ROUTE_CLOSE}), worst mean |difference| {mean:.3g} (< {HOST_ROUTE_MEAN}) "
+          f"[{tag}]", flush=True)
+
+    syn = tds.SyntheticUvitonDataset(num_samples=32, resolution=256, seed=0)
+    batches = [tds.collate([syn[i] for i in range(b, b + 16)]) for b in (0, 16)]
+    n, close, mean = 0, 1.0, 0.0
+    for item in hr.HostRoutingPipeline(iter(batches), hr.training_route_fn()):
+        hb = item["host_batch"]
+        img = torch.as_tensor(hb["image"], device="cuda").float() / 255.0
+        up, lo = (torch.as_tensor(hb[k], device="cuda").float() for k in ("upper_mask", "lower_mask"))
+        dev = route_patches_batch(img * up, img * lo, up, lo, torch.as_tensor(hb["keypoints"], device="cuda").float())
+        c, m = route_agreement(torch, item["routed"], dev, keys[:5])
+        close, mean, n = min(close, c), max(mean, m), n + 1
+    torch.cuda.synchronize()
+    launches = ck.launch_counts()
+    assert n == 2
+    print(f"host_routing: HostRoutingPipeline(training_route_fn()) over 32 synthetic samples, 2 batches of 16, each "
+          f"held to the card's training route: worst share close {close:.5f}, mean |difference| {mean:.3g} [{tag}]",
+          flush=True)
+    check_launches("host_routing", launches, {"norm_warp": 3, "composite": 3})
+
+    n_threads = os.cpu_count() or 1
+    times = {}
+    for workers in sorted({1, 4, n_threads}):
+        ts = []
+        for _ in range(3):
+            s = time.perf_counter()
+            hr.route_patches_host_transfer_batch(*np_args, workers=workers)
+            ts.append((time.perf_counter() - s) * 1e3)
+        times[workers] = statistics.median(ts)
+    dev_ms, _ = host_ms(torch, lambda: route_patches_transfer_batch(*card_args), 10)
+    print(f"host_routing: transfer route of {len(items)} pairs (256x192), host ms a batch by sample threads "
+          + ", ".join(f"{w}: {ms:.1f}" for w, ms in times.items())
+          + f" ({n_threads} CPU threads; the warp also splits its rows); the card's route {dev_ms:.2f} ms [{tag}]",
+          flush=True)
+    print(f"host_routing: {time.perf_counter() - t0:.1f} s [{tag}]", flush=True)
+    return {"host_routing": launches}
+
+
+def tools_phase(torch, tag, tmp):
+    """The dataset tools: `cli.dataset_tool convert` of the fixture's 256x192
+    images into a zip at --resolution 64, read back and counted, and
+    `cli.draw_point` on one fixture person (no PIL on this machine: this is
+    what shows the tools run here)."""
+    import zipfile
+
+    from pasta_gan_tpu_torch.cli import dataset_tool, draw_point
+    from pasta_gan_tpu_torch.data import image_io
+
+    t0 = time.perf_counter()
+    src = os.path.join(fixture_root(), "UPT_subset1_256_192", "image")
+    names = sorted(n for n in os.listdir(src) if n.lower().endswith((".jpg", ".jpeg", ".png")))
+    dest = os.path.join(tmp, "tools_fixture64.zip")
+    n = dataset_tool.main(["convert", "--source", src, "--dest", dest, "--resolution", "64"])
+    with zipfile.ZipFile(dest) as z:
+        pngs = sorted(m for m in z.namelist() if m.endswith(".png"))
+        shapes = {image_io.decode_bytes(z.read(m), m)[0].shape for m in pngs}
+        meta = json.loads(z.read("dataset.json"))
+    assert n == len(names) == len(pngs) and shapes == {(64, 64, 3)} and meta["labels"] is None, (n, shapes, meta)
+    stem = os.path.splitext(names[0])[0]
+    out_png = os.path.join(tmp, "tools_overlay.png")
+    overlay = draw_point.main(["--image", os.path.join(src, names[0]), "--keypoints", os.path.join(
+        fixture_root(), "UPT_subset1_256_192", "keypoints", f"{stem}_keypoints.json"), "--out", out_png])
+    back = image_io.read_image(out_png)
+    drawn = int((back != image_io.read_rgb(os.path.join(src, names[0]))).any(-1).sum())
+    assert back.shape == (256, 192, 3) and (back == overlay).all() and drawn > 100, (back.shape, drawn)
+    print(f"tools: dataset_tool packed {n} fixture images at 64x64 (read back: {len(pngs)} PNGs); draw_point drew "
+          f"{drawn} pixels over {names[0]}; {time.perf_counter() - t0:.1f} s [{tag}]", flush=True)
+
+
 def main():
     import torch
 
@@ -3125,6 +3495,10 @@ def main():
         del expected
         launches.update(plain_512_phase(torch, ck, tag))
         launches.update(zoo_phase(torch, ck, tag))
+        launches.update(v1_phase(torch, ck, tag))
+        launches.update(patch_d_phase(torch, ck, tag))
+        launches.update(host_routing_phase(torch, ck, tag))
+        tools_phase(torch, tag, tmp)
     train_card_vs_cpu(torch, tag)
     train_card_vs_cpu(torch, tag, "ADA debug percentile", ada="debug")
     train_card_vs_cpu(torch, tag, "ADA random draws", ada="random")

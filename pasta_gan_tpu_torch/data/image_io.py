@@ -8,8 +8,9 @@ as Pillow on libjpeg-turbo, bit for bit:
 * `read_rgb(p)`    == `np.asarray(PIL.Image.open(p).convert("RGB"))`
 * `read_l_resized(p, (w, h))` == `np.asarray(PIL.Image.open(p).convert("L").resize((w, h)))`
 
-and, for `cli/calc_metrics.py`'s folder source, `resize(img, (w, h), "lanczos")`
-== `np.asarray(PIL.Image.fromarray(img).resize((w, h), PIL.Image.LANCZOS))`.
+and, for `cli/calc_metrics.py`'s folder source and `cli/dataset_tool.py`,
+`resize(img, (w, h), f)` == `np.asarray(PIL.Image.fromarray(img).resize((w, h), F))`
+for f "lanczos", "box" and "bicubic" (PIL's LANCZOS, BOX, BICUBIC).
 
 JPEG (baseline and extended sequential Huffman, 8-bit, grey or YCbCr at
 4:4:4, 4:2:2 or 4:2:0, restart intervals) is decoded by the plain-C library
@@ -22,8 +23,9 @@ library: 8-bit grey, grey+alpha, RGB and RGBA, palette at 1, 2, 4 and 8 bits
 `ValueError` naming the file.
 
 `write_png(img, path)` writes an 8-bit grey [H, W] or RGB [H, W, 3] array
-as an unfiltered PNG (`zlib` and `struct` only): what the try-on CLIs and the
-training snapshot grids write.
+as an unfiltered PNG (`zlib` and `struct` only; `png_bytes` gives the file's
+bytes): what the try-on CLIs, the training snapshot grids and the dataset
+tool write.
 
 The library is built from the checkout at first use into `build/` (nvcc as
 the host compiler driver where it is found, else `cc`) under a name that
@@ -185,7 +187,11 @@ def decode(path: str) -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
     """(array, PIL mode, palette or None) of a JPEG or PNG file; the array is
     what `np.asarray(PIL.Image.open(path))` gives."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_bytes(f.read(), path)
+
+
+def decode_bytes(data: bytes, path: str = "<bytes>") -> Tuple[np.ndarray, str, Optional[np.ndarray]]:
+    """`decode` of a file's bytes (`path` names it in errors)."""
     if data[:2] == b"\xff\xd8":
         arr, mode = _decode_jpeg(data, path)
         return arr, mode, None
@@ -201,6 +207,13 @@ def read_image(path: str) -> np.ndarray:
 
 def write_png(img: np.ndarray, path: str) -> None:
     """Write a uint8 array, grey [H, W] or RGB [H, W, 3], as a PNG file."""
+    with open(path, "wb") as f:
+        f.write(png_bytes(img))
+
+
+def png_bytes(img: np.ndarray) -> bytes:
+    """The PNG file of a uint8 array, grey [H, W] or RGB [H, W, 3]: unfiltered
+    rows, deflated by zlib at level 6."""
     img = np.ascontiguousarray(img)
     if img.dtype != np.uint8 or not (img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
         raise ValueError(f"write_png takes uint8 [H, W] or [H, W, 3], got {img.dtype} {img.shape}")
@@ -211,10 +224,8 @@ def write_png(img: np.ndarray, path: str) -> None:
         return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF)
 
     color_type = 0 if img.ndim == 2 else 2
-    png = (_PNG_SIG + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
-           + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
-    with open(path, "wb") as f:
-        f.write(png)
+    return (_PNG_SIG + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 6)) + chunk(b"IEND", b""))
 
 
 def _l_weights(rgb: np.ndarray) -> np.ndarray:
@@ -286,8 +297,13 @@ def _lanczos(x: float) -> float:
     return 0.0
 
 
+def _box(x: float) -> float:
+    """Resample.c's `box_filter`: 1 on (-0.5, 0.5]."""
+    return 1.0 if -0.5 < x <= 0.5 else 0.0
+
+
 # filter name -> (filter, support), as Resample.c's `filter` structs
-FILTERS = {"bicubic": (_bicubic, 2.0), "lanczos": (_lanczos, 3.0)}
+FILTERS = {"box": (_box, 0.5), "bicubic": (_bicubic, 2.0), "lanczos": (_lanczos, 3.0)}
 
 
 @functools.lru_cache(maxsize=32)

@@ -1,5 +1,6 @@
 """JAX variables -> this package's state_dicts: GeneratorFull, GeneratorV18, Generator512,
-Generator512Plain, GeneratorStock, the V10-V21 generators and the ablations, Discriminator
+Generator512Plain, GeneratorStock, GeneratorV1 (its "spectral" u, v), the V10-V21 generators and
+the ablations, the patch discriminators (`patch_discriminator_state_dict_from_jax`), Discriminator
 (every architecture: the skip architecture's per-block and epilogue `fromrgb` carry by the
 same names), VGG19, and the metrics' SimpleConvFeatures; and a generator's int8 "quant_scales" collection -> its activation sites
 (`quant_scales_from_jax`).
@@ -12,13 +13,15 @@ numpy (or array-like) leaves.
 Name translations beyond the Sequential children (`layers_N` -> N) and the encoders' stages:
   synthesis_b64 (the zoo's flat top-level blocks) -> synthesis.b64
   model_3, spade_encoder_1, feat_enc_0, spade_affine_0, mask_conv_N, merge_conv_N,
-  shortcut_N (the zoo's flat Sequential children) -> model.3, ...
+  shortcut_N (the zoo's and FlowNet's flat Sequential children) -> model.3, ...
+  the V1 style encoder's literal `model.N` names (its attention shifts them) pass through
 
 Layout translations:
   conv weight   HWIO            -> OIHW      (transpose 3, 2, 0, 1)
   flax Dense    kernel [in,out] -> Linear weight [out, in]
   flax Conv     kernel HWIO     -> OIHW
   eq-lr FC      [out, in]       -> [out, in] (copy)
+  transposed conv weight_orig [kh, kw, out, in] -> [in, out, kh, kw] (the same transpose)
   const         [H, W, C]       -> [C, H, W]
   D b4.fc       [out, H*W*C]    -> [out, C*H*W] (JAX flattens NHWC, the port NCHW)
   VGG19 conv{i} -> torchvision's features.{layer}
@@ -92,6 +95,9 @@ def port_key(path: Tuple[str, ...]) -> Tuple[str, str]:
     return ".".join(names + [leaf]), "param"
 
 
+_COLLECTIONS = ("params", "buffers", "spectral")
+
+
 def state_dict_from_jax(variables, expected: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
     """Translate a JAX generator's `variables` (GeneratorFull, GeneratorV18, Generator512,
     Generator512Plain, GeneratorStock, a V10-V21 generator or an ablation) into a port
@@ -99,15 +105,20 @@ def state_dict_from_jax(variables, expected: Optional[Mapping[str, torch.Tensor]
     each synthesis layer's `noise_const` map, a persistent buffer of the
     port).
 
-    Raises on a collection other than "params" and "buffers", and, when
+    The flow generator V1's "spectral" collection holds each spectrally
+    normalized conv's `weight_u` / `weight_v`, buffers of the port (a
+    transposed conv's `weight_orig`, stored [kh, kw, out, in], becomes
+    torch's [in, out, kh, kw] by the same 4-D transpose as every conv).
+
+    Raises on a collection other than "params", "buffers" and "spectral", and, when
     `expected` (the target module's state_dict) is given, on any missing,
     extra or mis-shaped key.  Load the result with
     `load_state_dict(..., strict=True)`."""
-    extra_collections = set(variables) - {"params", "buffers"}
+    extra_collections = set(variables) - set(_COLLECTIONS)
     if extra_collections:
         raise KeyError(f"unsupported JAX collections: {sorted(extra_collections)}")
     out: Dict[str, torch.Tensor] = {}
-    leaves = [(path, leaf) for coll in ("params", "buffers") for path, leaf in _flatten(variables.get(coll, {}))]
+    leaves = [(path, leaf) for coll in _COLLECTIONS for path, leaf in _flatten(variables.get(coll, {}))]
     for path, leaf in leaves:
         key, kind = port_key(path)
         a = np.asarray(leaf, dtype=np.float32)
@@ -186,4 +197,58 @@ def simpleconv_state_dict_from_jax(kernels, proj, expected: Optional[Mapping[str
             raise ValueError(f"SimpleConvFeatures kernel {i} has shape {k.shape}, expected HWIO")
         out[f"kernel{i}"] = torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
     out["proj"] = torch.from_numpy(np.array(proj, dtype=np.float32))
+    return _checked(out, expected)
+
+
+def _patch_discriminator_layer_names(n_layers: int):
+    """The reference's names of a patch discriminator's `convs`, by position:
+    `0`, a halving ResBlock per level named `<2^i>x<2^i>` (i > 6) or `7 - i`
+    (i <= 6), then `5` and `6`."""
+    log_size = n_layers - 1
+    return ["0"] + [str(7 - i) if i <= 6 else f"{2**i}x{2**i}" for i in range(log_size, 2, -1)] + ["5", "6"]
+
+
+def patch_discriminator_state_dict_from_jax(variables, expected: Optional[Mapping[str, torch.Tensor]] = None,
+                                            blur_kernel=(1, 3, 3, 1)):
+    """JAX `StyleGAN2PatchDiscriminator` / `...V2` `variables` -> the port's
+    state_dict (the inverse of the JAX test's reference converter,
+    tests/test_patch_discriminator.py:_convert):
+
+      convs_<position>[/conv1|conv2|skip]/weight HWIO -> convs.<name>[...].Conv.weight OIHW
+      .../bias -> ...Act.bias (every biased conv of the discriminator activates)
+      pairlinear_N/{weight, bias} -> pairlinear.N.* (weight already [out, in])
+
+    and each downsampling layer's `Blur.kernel` buffer, the normalized
+    `blur_kernel` (`setup_filter`), which JAX rebuilds from its static taps.
+    Raises on another collection and, with `expected`, on any missing, extra
+    or mis-shaped key."""
+    from ..ops.upfirdn2d import setup_filter
+
+    extra_collections = set(variables) - {"params"}
+    if extra_collections:
+        raise KeyError(f"unsupported JAX collections: {sorted(extra_collections)}")
+    params = variables["params"]
+    n_layers = len([k for k in params if k.startswith("convs_")])
+    names = _patch_discriminator_layer_names(n_layers)
+    out: Dict[str, torch.Tensor] = {}
+    for path, leaf in _flatten(params):
+        a = np.asarray(leaf, dtype=np.float32)
+        m = re.fullmatch(r"convs_(\d+)", path[0])
+        if m:
+            prefix = ".".join(["convs", names[int(m.group(1))], *path[1:-1]])
+            if path[-1] == "weight":
+                key, a = f"{prefix}.Conv.weight", a.transpose(3, 2, 0, 1)
+            elif path[-1] == "bias":
+                key = f"{prefix}.Act.bias"
+            else:
+                raise KeyError(f"unexpected patch discriminator leaf {'/'.join(path)}")
+        elif re.fullmatch(r"pairlinear_\d+", path[0]) and path[-1] in ("weight", "bias"):
+            key = f"pairlinear.{path[0].split('_')[1]}.{path[-1]}"
+        else:
+            raise KeyError(f"unexpected patch discriminator leaf {'/'.join(path)}")
+        out[key] = torch.from_numpy(np.array(a, order="C", copy=True))
+    blur = setup_filter(list(blur_kernel))
+    for name in names[1:-2]:  # the halving ResBlocks
+        for sub in ("conv2", "skip"):
+            out[f"convs.{name}.{sub}.Blur.kernel"] = blur.clone()
     return _checked(out, expected)

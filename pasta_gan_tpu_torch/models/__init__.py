@@ -22,6 +22,7 @@ from .generator_ablations import (
 )
 from .generator_full import GeneratorFull, cat_feats_dict
 from .generator_stock import GeneratorStock
+from .generator_v1 import GeneratorV1
 from .generator_v10 import GeneratorV10
 from .generator_v11 import GeneratorV11, GeneratorV12
 from .generator_v13 import GeneratorV13, GeneratorV14
@@ -43,9 +44,11 @@ MODEL_REGISTRY: Dict[str, Callable[..., Any]] = {
     "Generator512": Generator512,
     "Generator512Plain": Generator512Plain,
     "GeneratorStock": GeneratorStock,
+    "GeneratorV1": GeneratorV1,
     "Discriminator": Discriminator,
     **{cls.__name__: cls for cls in ZOO},
     # the reference's dotted names (training_options.json)
+    "training.networks.Generator": GeneratorV1,
     "training.networks.GeneratorFull": GeneratorFull,
     "training.networks.GeneratorV18": GeneratorV18,
     "training.networks.Generator_512": Generator512Plain,
@@ -57,10 +60,6 @@ MODEL_REGISTRY: Dict[str, Callable[..., Any]] = {
     "training.networks.GeneratorV15": GeneratorV15_2,
 }
 
-# the JAX package's keys whose classes the port has not ported yet (ROADMAP §A 10 item 4)
-NOT_PORTED = ("GeneratorV1", "training.networks.Generator")
-
-
 def register_model(name: str, ctor: Callable[..., Any]) -> None:
     MODEL_REGISTRY[name] = ctor
 
@@ -68,12 +67,9 @@ def register_model(name: str, ctor: Callable[..., Any]) -> None:
 def build_model(class_name: str, **kwargs):
     if class_name in MODEL_REGISTRY:
         return MODEL_REGISTRY[class_name](**kwargs)
-    if class_name in NOT_PORTED:
-        raise KeyError(f"model {class_name!r} is not ported yet (ROADMAP §A 10 item 4: the flow V1 generator "
-                       "with nn/flow.py)")
     raise KeyError(f"unknown model {class_name!r}; known: {sorted(MODEL_REGISTRY)}")
 
 
-__all__ = ["GENERATORS", "MODEL_REGISTRY", "NOT_PORTED", "ZOO", "Discriminator", "Generator512",
-           "Generator512Plain", "GeneratorFull", "GeneratorStock", "GeneratorV18", "build_model", "cat_feats_dict",
+__all__ = ["GENERATORS", "MODEL_REGISTRY", "ZOO", "Discriminator", "Generator512",
+           "Generator512Plain", "GeneratorFull", "GeneratorStock", "GeneratorV1", "GeneratorV18", "build_model", "cat_feats_dict",
            "register_model"] + [cls.__name__ for cls in ZOO]

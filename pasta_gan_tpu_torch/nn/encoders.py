@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import Conv2dLayer, DenseNorm, FullyConnectedLayer
+from .layers import Conv2dLayer, DenseNorm, FullyConnectedLayer, SelfAttention
 
 
 class ConstEncoderNetwork(nn.Module):
@@ -61,6 +61,8 @@ class StyleEncoderNetworkV16(nn.Module):
     `x`: [N, input_nc, h, w] patch stack; `const_input`: [N, 3, H, W] retain image.
     Returns (style [N, output_nc], feats at /1, /2, /4, /8)."""
 
+    use_attention = False
+
     def __init__(self, input_nc, output_nc=512, ngf=64, extra_convs=3):
         super().__init__()
         self.feat_enc = RetainFeatureEncoder(ngf)
@@ -68,6 +70,8 @@ class StyleEncoderNetworkV16(nn.Module):
         mult_outs = [2, 4, 8]
         layers = [Conv2dLayer(input_nc, ngf, 1)]
         for i in range(3):
+            if self.use_attention and i == 2:
+                layers.append(SelfAttention(ngf * mult_ins[i]))
             layers.append(DenseNorm(ngf * mult_ins[i], ngf * mult_ins[i]))
             layers.append(Conv2dLayer(ngf * mult_ins[i], ngf * mult_outs[i], 3, down=2, quant_site=True))
         for _ in range(extra_convs):
@@ -81,3 +85,11 @@ class StyleEncoderNetworkV16(nn.Module):
         x = self.model(x)
         x = x.mean(dim=(2, 3))  # AdaptiveAvgPool2d(1)
         return self.fc(x), feats
+
+
+class StyleEncoderNetwork(StyleEncoderNetworkV16):
+    """The V1 style encoder (reference `networks.py:647-698`): V16's with a
+    `SelfAttention` before the third DenseNorm, inside the same Sequential, so
+    the later indices shift by one (`model.5` is the attention)."""
+
+    use_attention = True

@@ -8,9 +8,9 @@ and `Generator_512_v2`) against the JAX package's, and the model registry
   from JAX's "buffers") and truncation psi 0.7: the image within the Full
   generator's limits, rtol 1e-2 / atol 5e-3; the JAX variables carried by
   `io/from_jax.py:state_dict_from_jax` with a strict load.
-* `build_model` of every key the port registers builds the port's class; a
-  key of the JAX registry whose class is not ported yet raises naming
-  ROADMAP §A 10; an unknown key raises like JAX's.
+* `build_model` of every key the port registers builds the port's class;
+  the port registers every key of the JAX registry (the flow generator V1's
+  two keys were the last); an unknown key raises like JAX's.
 """
 
 import ast
@@ -88,10 +88,10 @@ def test_build_model_builds_the_ports_class(key):
 
 def test_registry_covers_the_jax_keys():
     keys = _jax_registry_keys()
-    assert sorted(set(models.MODEL_REGISTRY) | set(models.NOT_PORTED)) == sorted(keys)
+    assert sorted(models.MODEL_REGISTRY) == sorted(keys)
     assert models.MODEL_REGISTRY["training.networks.Generator_512_v2"] is Generator512Plain
-    for key in models.NOT_PORTED:
-        with pytest.raises(KeyError, match="§A 10 item 4"):
-            models.build_model(key)
+    for key in ("GeneratorV1", "training.networks.Generator"):  # the flow generator, the last keys ported
+        model = models.build_model(key, img_resolution=32, channel_base=64, channel_max=8)
+        assert type(model) is models.GeneratorV1
     with pytest.raises(KeyError, match="unknown model 'GeneratorV99'"):
         models.build_model("GeneratorV99")

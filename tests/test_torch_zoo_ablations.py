@@ -71,5 +71,4 @@ def test_build_model_builds_every_zoo_key():
         model = models.build_model(key, img_resolution=32, channel_base=64, channel_max=8)
         assert type(model).__name__ == JAX_REGISTRY[key].__name__, key
     assert type(models.build_model("training.networks.GeneratorV15")) is models.GeneratorV15_2
-    assert sorted(models.NOT_PORTED) == ["GeneratorV1", "training.networks.Generator"]
-    assert set(jax_keys) == set(models.MODEL_REGISTRY) | set(models.NOT_PORTED)
+    assert set(jax_keys) == set(models.MODEL_REGISTRY)
