@@ -168,6 +168,15 @@ Phases, each fatal on failure:
    gating mask head's threshold placed in a gap of its logits first and the
    binarised masks equal; V14, V17, V21 and NoCoarse timed (images/s, host
    and device ms, busy share, bf16 against fp32).  It prints its seconds.
+17. The V1, patch discriminator, host routing and tools phases (see their
+   functions), then the several-rank phase (`dp_train`, `dp_serve`;
+   `dp_phase`): `cli.train` under torchrun as two gloo ranks sharing the
+   card and as one NCCL rank, at full width for two steps at global batch 4
+   (the two ranks' final G, D and G_ema bitwise equal, only rank 0 writes;
+   mesh.py's collectives on a one-rank NCCL group), and `cli.test --dp`
+   against the same call without it; each rank process counts its own
+   launches, which must equal `DP_TRAIN_LAUNCHES`.  This script is the
+   ranks' entry point too (`chip_smoke.py --dp-rank ...`).
 Each path's launch counts are set to 0 just before it runs and read just
 after; each path must launch exactly its kernels (`PATH_KERNELS`).  The
 training phase also counts down2's launches by (pad, dtype, input shape) in
@@ -402,12 +411,11 @@ def composite_entry(torch, ck, cargs):
     h_out = torch.empty((B, len(hands), H, W), device=srcs.device)
     bits = [sum(1 << p for p in range(N) if f(p)) for f in (lambda p: groups[p] == 1, lambda p: erode[p],
                                                             lambda p: p in hands)]
-    stream = ck.stream_of(srcs.device)
 
     def launch():
         ck.COMPOSITE.launch(srcs.data_ptr(), minv.data_ptr(), valid.data_ptr(), g_out.data_ptr(),
                             h_out.data_ptr() if hands else None, B, N, Hs, Ws, H, W, n_groups, *bits, len(hands),
-                            MASK_SATURATION_THRESHOLD, stream)
+                            MASK_SATURATION_THRESHOLD, srcs.device)
     return launch, (g_out, h_out)
 
 
@@ -417,11 +425,10 @@ def norm_warp_entry(torch, ck, args):
     B, H, W, C = src0.shape
     N = minv.shape[1]
     out = torch.empty((B, N, C, h, w), device=src0.device)
-    stream = ck.stream_of(src0.device)
 
     def launch():
         ck.NORM_WARP.launch(src0.data_ptr(), src1.data_ptr(), minv.data_ptr(), valid.data_ptr(), out.data_ptr(),
-                            B, N, n0, H, W, h, w, C, stream)
+                            B, N, n0, H, W, h, w, C, src0.device)
     return launch, out
 
 
@@ -430,11 +437,10 @@ def denorm_warp_entry(torch, ck, dargs, border="constant"):
     srcs, minv, valid, (H, W) = dargs
     B, N, C, Hs, Ws = srcs.shape
     out = torch.empty((B, N, C, H, W), device=srcs.device)
-    stream = ck.stream_of(srcs.device)
 
     def launch():
         ck.DENORM_WARP.launch(srcs.data_ptr(), minv.data_ptr(), valid.data_ptr(), out.data_ptr(), B, N, C, Hs, Ws,
-                              H, W, int(border == "replicate"), stream)
+                              H, W, int(border == "replicate"), srcs.device)
     return launch, out
 
 
@@ -822,7 +828,7 @@ def fir_case(torch, g, kind, arg, dt, shape, tag):
     ye = torch.empty_like(y)
     entry = lambda: (ck.UP2 if kind == "up2" else ck.DOWN2).launch(  # noqa: E731
         x.data_ptr(), ye.data_ptr(), int(dt == torch.bfloat16), shape[0] * C, shape[2], shape[3], arg, 1.0,
-        ck.stream_of(x.device))
+        x.device)
     entry()
     torch.cuda.synchronize()
     assert torch.equal(ye, y), f"{kind} through its C entry point differs from its wrapper"
@@ -837,14 +843,15 @@ def fir_case(torch, g, kind, arg, dt, shape, tag):
     return res
 
 
-def serve(torch, cli, ck, tag, path, argv, data=("--synthetic", "16")):
+def serve(torch, cli, ck, tag, path, argv, data=("--synthetic", "16"), **kw):
     """One `cli.test.main` run of 16 pairs (synthetic, or `data`'s) with the
     launch counts set to 0 just before it and read just after; the run must
     write 16 PNGs (the CLI refuses non-finite images) and launch exactly the
-    path's kernels.  Returns (counts, written paths)."""
+    path's kernels.  `kw` goes to `main` (`devices=`).  Returns (counts,
+    written paths)."""
     ck.reset_launch_counts()
     t0 = time.perf_counter()
-    written = cli.main(argv + [*data, "--batchsize", "16"])
+    written = cli.main(argv + [*data, "--batchsize", "16"], **kw)
     torch.cuda.synchronize()
     cli_s = time.perf_counter() - t0
     launches = ck.launch_counts()
@@ -3449,6 +3456,203 @@ def tools_phase(torch, tag, tmp):
           f"{drawn} pixels over {names[0]}; {time.perf_counter() - t0:.1f} s [{tag}]", flush=True)
 
 
+# the data-parallel phase: cli.train for two steps at global batch 4 (full width, noaug, no grids, R1 on
+# the first), as two gloo ranks sharing the card and as one NCCL rank; each rank process launches exactly these
+# kernels (the routing of its two batches, the FIR of two Gmain+Dmain steps and one R1; counted on the CPU by
+# calling the wrappers' plain versions, which do not depend on width or batch)
+DP_SAMPLES = 16
+DP_ARGV = ["--synthetic", str(DP_SAMPLES), "--batch", "4", "--kimg", "0.008", "--aug", "noaug", "--img_snap", "0",
+           "--dtype", "bfloat16", "--seed", "0", "--workers", "1"]
+DP_TRAIN_LAUNCHES = {"norm_warp": 2, "composite": 2, "up2": 130, "down2": 104}
+# cli.test --dp of 16 synthetic pairs at --batchsize 16 on each of its devices: one routing and one forward a device
+DP_DEVICES = ["cuda:0", "cuda:0"]  # two replicas on the one card: the copy, the split and the ordered gather run
+DP_SERVE_LAUNCHES = {"norm_warp": 1, "composite": 1, "up2": FORWARD_UP2, "down2": FORWARD_DOWN2}
+DP_MEAN_DIFF = 1.5  # --dp against one device, mean |difference| on uint8 (the JAX package's tests/test_loop_cli.py:148)
+DP_TIMEOUT_S = 420
+PATH_KERNELS.update({"dp_train": FUSED, "dp_serve": FUSED})
+
+
+def state_digest(torch, module):
+    """sha256 of a module's state_dict, key by key in order (bytes on the host)."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, v in module.state_dict().items():
+        h.update(k.encode())
+        h.update(v.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def dp_rank(argv):
+    """One rank of `dp_phase`'s torchrun runs (`chip_smoke.py --dp-rank [--nccl-check] <cli.train flags>`):
+    this process's launch counts set to 0 just before `cli.train.main` and read just after, and one
+    `DP_RANK {json}` line with them, the digests of the final G, D and G_ema, the step times and the run dir
+    (None off rank 0).  Then every (kernel, extend or pad, dtype, input shape) class of up2 and down2 that
+    this rank's `train_step` and `d_r1_step` launch on its own first batch is held to its plain version at
+    max abs error 0 (`fir_classes_equal`; the run's process group is gone by then, and a step's classes do
+    not depend on its all-reduce, so these steps run without one).  With --nccl-check (a run of world 1,
+    which has no process group) it then joins a one-rank NCCL group and runs parallel/mesh.py's
+    collectives on the final state, which must leave it unchanged bit for bit."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pasta_gan_tpu_torch.cli import train as cli_train
+    from pasta_gan_tpu_torch.data.dataset import SyntheticUvitonDataset, collate, prepare_train_batch
+    from pasta_gan_tpu_torch.ops import cuda_kernels as ck
+    from pasta_gan_tpu_torch.parallel import mesh
+    from pasta_gan_tpu_torch.train.loop import batch_indices
+
+    nccl_check = argv[:1] == ["--nccl-check"]
+    argv = argv[1:] if nccl_check else argv
+    ck.build_kernels()  # built by the parent: loads them
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = cli_train.main(argv)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = {k: n for k, n in ck.launch_counts().items() if n}
+    state = out["state"]
+    res = {"rank": out["rank"], "world": out["world"], "device": str(state.w_avg.device), "step": state.step,
+           "launches": launches, "wall_s": round(wall_s, 3), "run_dir": out["run_dir"],
+           "gmain_dmain_ms": [round(r["Timing/Gmain_Dmain"] * 1e3, 1) for r in out["records"]],
+           "dreg_ms": [round(r["Timing/Dreg"] * 1e3, 1) for r in out["records"] if "Timing/Dreg" in r],
+           "digest": {name: state_digest(torch, getattr(state, name)) for name in ("G", "D", "G_ema")}}
+    trainer, cfg = out["trainer"], out["trainer"].config
+    trainer.group = None
+    ds = SyntheticUvitonDataset(num_samples=DP_SAMPLES, seed=cfg.random_seed)
+    idx = batch_indices(len(ds), cfg.batch_size // res["world"], cfg.random_seed, 0, res["rank"], res["world"])
+    batch = prepare_train_batch(collate([ds[i] for i in idx]), torch.Generator().manual_seed(1),
+                                device=state.w_avg.device)
+    tag = f"{card_tag()}; rank {res['rank']}/{res['world']}"
+    res["fir"] = {}
+    for label, step in (("train_step", trainer.train_step), ("d_r1_step", trainer.d_r1_step)):
+        classes = fir_classes_equal(torch, lambda: step(state, batch), f"dp_train {label} batch {len(idx)}", tag)
+        res["fir"][label] = {"launches": sum(classes.values()), "classes": len(classes)}
+    if nccl_check:
+        torch.distributed.init_process_group("nccl", init_method="env://", world_size=1, rank=0)
+        group = torch.distributed.group.WORLD
+        before = {k: v.clone() for k, v in state.G.state_dict().items()}
+        grads = [p.detach().clone() for p in state.G.parameters()]
+        reduced = mesh.all_reduce_mean([g.clone() for g in grads], group)
+        mesh.replicate_module(state.G, group=group)
+        mesh.check_replication_consistency(state.G, group, prefix="G.")
+        res["nccl_check"] = {"backend": torch.distributed.get_backend(group), "tensors": len(grads),
+                             "all_reduce_mean_exact": all(torch.equal(a, b) for a, b in zip(reduced, grads)),
+                             "replicate_exact": all(torch.equal(v, before[k]) for k, v in state.G.state_dict().items())}
+        torch.distributed.destroy_process_group()
+    print("DP_RANK " + json.dumps(res), flush=True)
+    return 0
+
+
+def run_ranks(nproc, args, log):
+    """Start `torchrun --standalone --nproc_per_node nproc chip_smoke.py --dp-rank args` in a session of
+    its own, output to `log`."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(nproc),
+           os.path.join(here, "chip_smoke.py"), "--dp-rank", *args]
+    f = open(log, "w")
+    return subprocess.Popen(cmd, cwd=here, stdout=f, stderr=subprocess.STDOUT, start_new_session=True), f
+
+
+def kill_ranks(proc):
+    import signal
+
+    try:
+        os.killpg(proc.pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+    proc.wait()
+
+
+def wait_ranks(proc, f, log, label, timeout):
+    """The DP_RANK records of a `run_ranks` run, by rank; its process group is killed if it outlives `timeout`."""
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        kill_ranks(proc)
+        rc = "killed at its time limit"
+    f.close()
+    with open(log) as g:
+        text = g.read()
+    if rc != 0:
+        print(text[-6000:], flush=True)
+        raise AssertionError(f"{label}: torchrun exited {rc}")
+    recs = [json.loads(line.split("DP_RANK ", 1)[1]) for line in text.splitlines() if line.startswith("DP_RANK ")]
+    return {r["rank"]: r for r in recs}
+
+
+def dp_phase(torch, ck, tag, tmp):
+    """Several ranks and several devices on the one card.  (a) cli.train under torchrun as two
+    ranks over gloo sharing cuda:0 (`--device cuda:0`), full width, two steps at global batch 4: both
+    ranks' final G, D and G_ema bitwise equal (their digests; the loop also checks G and D before its
+    snapshot), only rank 0 wrote.  (b) the same flags with `--dist_backend nccl` under torchrun at world
+    1: a single-process run, which has no process group, followed by a one-rank NCCL smoke of mesh.py's
+    reduce, broadcast and check on its state.  (a) and (b) run at the same time, with (c) in this
+    process meanwhile: cli.test --dp over `DP_DEVICES`, two replicas on the one card, against the same
+    call without --dp.  Every rank process prints its own launch counts (`ops/cuda_kernels.py` counts
+    per process), which must be `DP_TRAIN_LAUNCHES`, and holds its steps' FIR classes to their plain
+    versions; (c)'s, counted from 0 just before the --dp call, `DP_SERVE_LAUNCHES` a replica.  A shared
+    card's two-rank times say nothing about scaling.  Returns {"dp_train": the three rank processes'
+    counts summed, "dp_serve": counts}."""
+    from pasta_gan_tpu_torch.cli import test as cli
+    from pasta_gan_tpu_torch.data import image_io
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out_a, out_b = os.path.join(tmp, "dp_gloo"), os.path.join(tmp, "dp_nccl")
+    pa, fa = run_ranks(2, ["--outdir", out_a, "--dist_backend", "gloo", "--device", "cuda:0", *DP_ARGV],
+                       os.path.join(tmp, "dp_gloo.log"))
+    pb, fb = run_ranks(1, ["--nccl-check", "--outdir", out_b, "--dist_backend", "nccl", *DP_ARGV],
+                       os.path.join(tmp, "dp_nccl.log"))
+    try:
+        # (c) cli.test --dp against the same call without it, on the Full snapshot of slice_phase
+        snap = os.path.join(tmp, "snapshot.pt")
+        _, one = serve(torch, cli, ck, tag, "serving_full", ["--network", snap, "--outdir", os.path.join(tmp, "dp_one")])
+        serve_launches, dp = serve(torch, cli, ck, tag, "dp_serve",
+                                   ["--network", snap, "--outdir", os.path.join(tmp, "dp_serve"), "--dp"],
+                                   devices=DP_DEVICES)
+        want = {k: n * len(DP_DEVICES) for k, n in DP_SERVE_LAUNCHES.items()}
+        assert {k: n for k, n in serve_launches.items() if n} == want, f"dp_serve launched {serve_launches}, expected {want}"
+        assert [os.path.basename(p) for p in dp] == [os.path.basename(p) for p in one]
+        diffs = [float(abs(image_io.read_image(a).astype("float64") - image_io.read_image(b)).mean())
+                 for a, b in zip(dp, one)]
+        print(f"dp_serve: cli.test --dp over {DP_DEVICES} (two replicas of 8 pairs) against one device, mean "
+              f"|diff| on uint8 max "
+              f"{max(diffs):.4g} over {len(dp)} images (limit {DP_MEAN_DIFF}) [{tag}]", flush=True)
+        assert max(diffs) < DP_MEAN_DIFF, f"--dp images differ from the single-device run: {max(diffs)}"
+    except BaseException:
+        kill_ranks(pa)
+        kill_ranks(pb)
+        raise
+    ranks_a = wait_ranks(pa, fa, os.path.join(tmp, "dp_gloo.log"), "dp_train (2 gloo ranks)", DP_TIMEOUT_S)
+    ranks_b = wait_ranks(pb, fb, os.path.join(tmp, "dp_nccl.log"), "dp_train (world 1, then one NCCL rank)",
+                         DP_TIMEOUT_S)
+    for label, ranks in (("2 gloo ranks on cuda:0", ranks_a), ("world 1, no process group", ranks_b)):
+        for r, rec in sorted(ranks.items()):
+            print(f"dp_train ({label}) rank {r}/{rec['world']} on {rec['device']}: launches {rec['launches']}; "
+                  f"G {rec['digest']['G']} D {rec['digest']['D']} G_ema {rec['digest']['G_ema']}; cli.train "
+                  f"{rec['wall_s']:.1f} s, Gmain+Dmain {rec['gmain_dmain_ms']} ms, Dreg {rec['dreg_ms']} ms "
+                  f"(concurrent with the other runs); its steps' FIR classes, each at max abs error 0 against its plain "
+                  f"version: {rec['fir']} [{tag}]", flush=True)
+            assert rec["launches"] == DP_TRAIN_LAUNCHES, f"rank {r} ({label}) launched {rec['launches']}"
+            assert rec["step"] == 2, rec
+    assert sorted(ranks_a) == [0, 1] and all(r["world"] == 2 for r in ranks_a.values()), ranks_a
+    assert ranks_a[0]["digest"] == ranks_a[1]["digest"], "the two gloo ranks' final G, D, G_ema differ"
+    assert ranks_a[1]["run_dir"] is None and os.listdir(out_a) == [os.path.basename(ranks_a[0]["run_dir"])]
+    assert sorted(os.listdir(ranks_a[0]["run_dir"])) == ["network-snapshot-000000.pt", "stats.jsonl",
+                                                         "train-state-latest.pt", "training_options.json"]
+    with open(os.path.join(ranks_a[0]["run_dir"], "training_options.json")) as f:
+        assert json.load(f)["total_kimg"] == 0.008
+    assert sorted(ranks_b) == [0] and ranks_b[0]["world"] == 1, ranks_b
+    check = ranks_b[0]["nccl_check"]
+    print(f"dp_train one-rank NCCL smoke of the collectives: {check} [{tag}]", flush=True)
+    assert check["backend"] == "nccl" and check["all_reduce_mean_exact"] and check["replicate_exact"], check
+    train = {k: sum(rec["launches"].get(k, 0) for rec in (*ranks_a.values(), *ranks_b.values()))
+             for k in ck.KERNELS}
+    print(f"dp phase: {time.perf_counter() - t0:.1f} s [{tag}]", flush=True)
+    return {"dp_train": train, "dp_serve": serve_launches}
+
+
 def main():
     import torch
 
@@ -3499,6 +3703,7 @@ def main():
         launches.update(patch_d_phase(torch, ck, tag))
         launches.update(host_routing_phase(torch, ck, tag))
         tools_phase(torch, tag, tmp)
+        launches.update(dp_phase(torch, ck, tag, tmp))
     train_card_vs_cpu(torch, tag)
     train_card_vs_cpu(torch, tag, "ADA debug percentile", ada="debug")
     train_card_vs_cpu(torch, tag, "ADA random draws", ada="random")
@@ -3525,4 +3730,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dp_rank(sys.argv[2:]) if sys.argv[1:2] == ["--dp-rank"] else main())

@@ -24,15 +24,25 @@ extensions.  `--synthetic N` serves N synthetic pairs instead; one of the two
 is required.  `--quant` serves int8 (ops/quant.py): `int8` quantizes each
 activation with its own per-sample scale; `int8_static` first calibrates the
 activation scales on the first `--calib_batches` batches of the pairs
-(`calibrate_int8_static`), then serves with them frozen.  Serving over
-several cards comes later.
+(`calibrate_int8_static`), then serves with them frozen.
+
+`--dp` serves over every visible CUDA device from one process (JAX's
+`--dp` over its local devices): the generator is replicated onto each
+(after any int8_static calibration on the first), each global batch of
+`--batchsize` pairs is split into contiguous chunks in device order, each
+chunk is routed and run through the forward on its own device, and the
+outputs are gathered back in order.  `--batchsize` must divide by the
+device count; a ragged last batch is padded with its last pair to a
+multiple of it.  Without `--dp` the same path runs over the one device
+of `--device`.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
 import os
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -101,6 +111,52 @@ def tryon_forward(gen, w_avg, batch, truncation_psi: float = 1.0) -> torch.Tenso
     )[1]
 
 
+def replicate_generator(gen, w_avg, devices: Sequence[torch.device]):
+    """[(generator, w_avg)] on each of `devices`: `gen` itself on the first, copies on the others."""
+    return [(gen, w_avg)] + [(copy.deepcopy(gen).to(d), w_avg.to(d)) for d in devices[1:]]
+
+
+def serving_devices(args, devices: Optional[Sequence] = None) -> List[torch.device]:
+    """The devices that serve: `--dp`'s (`devices`, else every visible CUDA
+    device), refusing a `--batchsize` that does not divide by their count, or
+    the one device of `--device` without `--dp`."""
+    if not args.dp:
+        return [resolve_device(args.device)]
+    from ..parallel import mesh
+
+    devices = [torch.device(d) for d in devices] if devices is not None else mesh.data_parallel_devices()
+    if args.batchsize % len(devices):
+        raise SystemExit(f"--dp: --batchsize {args.batchsize} must divide by the {len(devices)} local devices")
+    return devices
+
+
+def dp_forward(replicas, person, garment, route, truncation_psi: float) -> List:
+    """One global batch over the replicas: the collated `person` / `garment`
+    dicts padded with their last pair to a multiple of the replica count,
+    split into contiguous chunks in device order (`mesh.shard_batch`), each
+    routed by `route(person, garment, device)` -> batch and run by
+    `tryon_forward` on its own device.  Returns [(chunk output, chunk batch)]
+    in device order; the outputs of the padding are part of the last chunk's."""
+    from ..parallel import mesh
+
+    n = len(next(iter(person.values())))
+    extra = -n % len(replicas)
+    pad = lambda d: {k: np.concatenate([v, np.repeat(v[-1:], extra, axis=0)]) for k, v in d.items()}  # noqa: E731
+    person, garment = pad(person), pad(garment)
+    out = []
+    for r, (gen, w_avg) in enumerate(replicas):
+        batch = route(mesh.shard_batch(person, r, len(replicas)), mesh.shard_batch(garment, r, len(replicas)),
+                      w_avg.device)
+        out.append((tryon_forward(gen, w_avg, batch, truncation_psi), batch))
+    return out
+
+
+def add_dp_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--dp", action="store_true",
+                   help="data-parallel serving over every visible CUDA device (the global --batchsize, which must "
+                        "divide by the device count, is split across them)")
+
+
 def add_quant_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--quant", choices=["int8", "int8_static"], default=None,
                    help="int8 serving (ops/quant.py): 'int8' = per-sample activation scales; 'int8_static' = "
@@ -121,7 +177,8 @@ def set_quant(gen, w_avg, args, n_pairs: int, batch_at) -> None:
         gen.quant = args.quant
 
 
-def main(argv=None):
+def main(argv=None, devices: Optional[Sequence] = None):
+    """The CLI; `devices` replaces `--dp`'s default device list (tests pass CPU devices)."""
     from ..data.warp import DENORM_ROUTES
 
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -138,18 +195,19 @@ def main(argv=None):
                    help="denorm route of the patch routing: one fused composite kernel, or the "
                         "denorm_warp kernel then separate threshold / erosion / composite passes")
     add_quant_args(p)
-    p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    add_dp_arg(p)
+    p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'; --dp serves on its own devices")
     args = p.parse_args(argv)
     if args.synthetic <= 0 and args.dataroot is None:
         raise SystemExit("--dataroot DIR or --synthetic N is required")
-    device = resolve_device(args.device)
+    devices = serving_devices(args, devices)
 
     from ..data.dataset import (
         SyntheticUvitonDataset, UvitonDataset256Test, collate, prepare_tryon_batch, prepare_tryon_batch_v18,
     )
 
     os.makedirs(args.outdir, exist_ok=True)
-    gen, w_avg = load_generator(args.network, device, args.generator)
+    gen, w_avg = load_generator(args.network, devices[0], args.generator)
     if gen.variant not in ("full", "v18"):
         raise SystemExit(f"{args.network} holds a {gen.variant!r} generator: serve it with cli.test_{gen.variant}")
     prepare = prepare_tryon_batch_v18 if gen.variant == "v18" else prepare_tryon_batch
@@ -167,19 +225,22 @@ def main(argv=None):
             r = test_ds[i]
             return r["person"], r["garment"], r["person_name"], r["garment_name"]
 
+    def route(person, garment, dev):
+        return prepare(person, garment, device=dev, denorm=args.denorm)
+
     def make_batch(i):
         chunk = [pair(k) for k in range(i, min(i + args.batchsize, n_pairs))]
-        return chunk, prepare(collate([c[0] for c in chunk]), collate([c[1] for c in chunk]), device=device,
-                              denorm=args.denorm)
+        return chunk, collate([c[0] for c in chunk]), collate([c[1] for c in chunk])
 
-    set_quant(gen, w_avg, args, n_pairs, lambda i: make_batch(i)[1])
+    set_quant(gen, w_avg, args, n_pairs, lambda i: route(*make_batch(i)[1:], devices[0]))
+    replicas = replicate_generator(gen, w_avg, devices)
     written = []
     for i in range(0, n_pairs, args.batchsize):
-        chunk, batch = make_batch(i)
-        out = tryon_forward(gen, w_avg, batch, args.truncation_psi).float()
+        chunk, person, garment = make_batch(i)
+        out = torch.cat([o.float().cpu() for o, _ in dp_forward(replicas, person, garment, route, args.truncation_psi)])
         if not bool(torch.isfinite(out).all()):
             raise RuntimeError("the generator produced non-finite try-on images")
-        out = out.cpu().numpy()
+        out = out.numpy()
         for j, (_, _, pname, gname) in enumerate(chunk):
             name = f"{os.path.basename(pname).split('.')[0]}__{os.path.basename(gname).split('.')[0]}.png"
             path = os.path.join(args.outdir, name)

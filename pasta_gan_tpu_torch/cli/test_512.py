@@ -21,20 +21,23 @@ nearest neighbour, as the JAX CLI does.  Output files are named
 `<person>__<garment>.png`.  `--denorm` picks the routing's denorm route, as in
 `cli/test.py`, and so do `--quant` and `--calib_batches` (int8 serving; the
 int8_static scales are calibrated on the first batches of the pairs).
-Serving over several cards (`--dp`) is not ported yet and refuses.
+`--dp` serves over every visible CUDA device from one process, as
+`cli/test.py --dp` does: each device routes and runs its contiguous chunk
+of the global `--batchsize`, which must divide by the device count.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .. import resolve_device
-from .test import add_quant_args, load_generator, save_image, set_quant, tryon_forward
+from .test import (add_dp_arg, add_quant_args, dp_forward, load_generator, replicate_generator, save_image,
+                   serving_devices, set_quant)
 
 
 def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
@@ -43,7 +46,8 @@ def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
     return F.interpolate(x.permute(0, 3, 1, 2), size=tuple(size), mode="nearest-exact").permute(0, 2, 3, 1)
 
 
-def main(argv=None):
+def main(argv=None, devices: Optional[Sequence] = None):
+    """The CLI; `devices` replaces `--dp`'s default device list (tests pass CPU devices)."""
     from ..data.warp import CHANGE_REGIONS, DENORM_ROUTES
 
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -58,19 +62,17 @@ def main(argv=None):
                    help="denorm route of the patch routing: one fused composite kernel, or the "
                         "denorm_warp kernel then separate threshold / erosion / composite passes")
     add_quant_args(p)
-    p.add_argument("--dp", action="store_true", help="serving over several cards (not ported yet)")
-    p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    add_dp_arg(p)
+    p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'; --dp serves on its own devices")
     args = p.parse_args(argv)
-    if args.dp:
-        raise SystemExit("--dp: serving over several cards is a later slice of the port (ROADMAP §A 11)")
     if args.synthetic <= 0 and args.dataroot is None:
         raise SystemExit("--dataroot DIR or --synthetic N is required")
-    device = resolve_device(args.device)
+    devices = serving_devices(args, devices)
 
     from ..data.dataset import SyntheticUvitonDataset, UvitonDataset512Test, collate, prepare_tryon_batch_512
 
     os.makedirs(args.outdir, exist_ok=True)
-    gen, w_avg = load_generator(args.network, device, "512")
+    gen, w_avg = load_generator(args.network, devices[0], "512")
     res = gen.config["img_resolution"]
     if args.synthetic > 0:
         ds = SyntheticUvitonDataset(num_samples=args.synthetic)
@@ -86,29 +88,33 @@ def main(argv=None):
             r = test_ds[i]
             return r["person"], r["garment"], r["person_name"], r["garment_name"]
 
-    def make_batch(i):
-        chunk = [pair(k) for k in range(i, min(i + args.batchsize, n_pairs))]
-        person, garment = collate([c[0] for c in chunk]), collate([c[1] for c in chunk])
+    def route(person, garment, dev):
         # the samples' square-padding x offset: 96 at 512x320, 32 for 256x192 samples
         batch = prepare_tryon_batch_512(person, garment, change_region=args.change_region,
-                                        pad_x=float(person["left_padding"][0]), device=device, denorm=args.denorm)
+                                        pad_x=float(person["left_padding"][0]), device=dev, denorm=args.denorm)
         if batch["pose"].shape[1] != res:  # samples drawn at another size: every image to the model's, as JAX does
             batch = {k: resize_nearest(v, (res, res)) for k, v in batch.items()}
-        return chunk, garment, batch
+        return batch
 
-    set_quant(gen, w_avg, args, n_pairs, lambda i: make_batch(i)[2])
+    def make_batch(i):
+        chunk = [pair(k) for k in range(i, min(i + args.batchsize, n_pairs))]
+        return chunk, collate([c[0] for c in chunk]), collate([c[1] for c in chunk])
+
+    set_quant(gen, w_avg, args, n_pairs, lambda i: route(*make_batch(i)[1:], devices[0]))
+    replicas = replicate_generator(gen, w_avg, devices)
     written = []
     for i in range(0, n_pairs, args.batchsize):
-        chunk, garment, batch = make_batch(i)
-        out = tryon_forward(gen, w_avg, batch, args.truncation_psi).float()
+        chunk, person, garment = make_batch(i)
+        parts = dp_forward(replicas, person, garment, route, args.truncation_psi)
+        out = torch.cat([o.float().cpu() for o, _ in parts])
+        p_img = torch.cat([b["person_img"].float().cpu() for _, b in parts]).numpy()
         if not bool(torch.isfinite(out).all()):
             raise RuntimeError("the generator produced non-finite try-on images")
         g_img = torch.as_tensor(garment["image"]).float() / 127.5 - 1.0
         if g_img.shape[1] != res:
             g_img = resize_nearest(g_img, (res, res))
         g_img = g_img.numpy()
-        p_img = batch["person_img"].float().cpu().numpy()
-        out = out.cpu().numpy()
+        out = out.numpy()
         crop = slice((res * 96) // 512, (res * (512 - 96)) // 512)
         for j, (_, _, pname, gname) in enumerate(chunk):
             strip = np.concatenate([g_img[j][:, crop], p_img[j][:, crop], out[j][:, crop]], axis=1)

@@ -37,6 +37,22 @@ loss runs only with that VGG loaded, as in the JAX package: with
 `--vgg_weight 0` it is off.  `-n/--dry-run` prints the resolved config and
 exits.
 
+Several cards: one process per card under torchrun, each rank on
+cuda:LOCAL_RANK with 1/world of the global `--batch`, gradients and stats
+averaged over the ranks at every step (`parallel/mesh.py`), NCCL by
+default on CUDA and gloo on the CPU (`--dist_backend`):
+
+  torchrun --standalone --nproc_per_node 4 -m pasta_gan_tpu_torch.cli.train --outdir ./runs \
+      --data /path/to/UPT --batch 32 --kimg 100
+
+`--device cuda:N` puts every rank on device N, which only gloo allows
+(NCCL needs a device per rank): two ranks can share one card that way.
+`--dist_init` is the rendezvous (default `env://`, torchrun's; a
+`file://` path on a shared file system works as the reference's did).
+`--accum` must divide the per-rank batch.  Only rank 0 writes the run
+directory; G and D are checked bitwise equal on every rank before each
+snapshot.
+
 `--resume` takes this package's train state (train-state-*.pt: the whole
 state is restored), a network pickle for transfer learning (a legacy
 TensorFlow StyleGAN2 export or a reference snapshot: the tensors whose
@@ -58,6 +74,7 @@ import zipfile
 import torch
 
 from .. import resolve_device
+from ..parallel import mesh
 
 
 # the reference's transfer-learning presets (train_wo_flow_fullbody.py:319-325)
@@ -109,6 +126,39 @@ def make_run_dir(outdir: str, desc: str) -> str:
     return run_dir
 
 
+def _kimg(value: str):
+    """`--kimg`: an integer as the JAX CLI parses it, or a fraction of one."""
+    try:
+        return int(value)
+    except ValueError:
+        return float(value)
+
+
+def rank_device(device: str, backend: str, world: int, local_rank: int) -> torch.device:
+    """The device of this rank: `device` on one process; with several ranks,
+    cuda:LOCAL_RANK for "cuda", device N for all of them for "cuda:N" (gloo
+    only), or the CPU (gloo only).  Every refusal is a SystemExit."""
+    dev = torch.device(device)
+    if backend == "nccl" and dev.type != "cuda":
+        raise SystemExit(f"--dist_backend nccl runs on CUDA devices, not {device}; the CPU takes gloo")
+    if world <= 1 or dev.type != "cuda":
+        return resolve_device(dev)
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if dev.index is None:
+        if local_rank >= n:
+            raise SystemExit(f"LOCAL_RANK {local_rank} runs on cuda:{local_rank}, and {n} CUDA devices are visible; "
+                             "--device cuda:N puts every rank on device N (with --dist_backend gloo)")
+        dev = torch.device("cuda", local_rank)
+    else:
+        if backend == "nccl":
+            raise SystemExit(f"--device {device} puts all {world} ranks on one device, and NCCL needs a device of "
+                             "its own for each rank; --dist_backend gloo shares one")
+        if dev.index >= n:
+            raise SystemExit(f"--device {device}: {n} CUDA devices are visible")
+    torch.cuda.set_device(dev)
+    return dev
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--outdir", required=True)
@@ -116,7 +166,7 @@ def main(argv=None):
     p.add_argument("--synthetic", type=int, default=0, help="train on N synthetic samples instead of --data")
     p.add_argument("--cfg", default="fashion", help="config preset (runtime/config.py:CFG_SPECS)")
     p.add_argument("--batch", type=int, default=None, help="global batch (default: the preset's)")
-    p.add_argument("--kimg", type=float, default=None, help="thousands of images to train on")
+    p.add_argument("--kimg", type=_kimg, default=None, help="thousands of images to train on (may be fractional)")
     p.add_argument("--fmaps", type=float, default=None, help="channel_base multiplier override (x 32768)")
     p.add_argument("--accum", type=int, default=None,
                    help="gradient-accumulation microbatches per phase; must divide the batch")
@@ -152,7 +202,12 @@ def main(argv=None):
                    help="image grid interval in ticks (default: the config's 50; 0 writes no grids)")
     p.add_argument("--kimg_per_tick", type=float, default=None, help="thousands of images a tick (default: the preset's)")
     p.add_argument("--workers", type=int, default=None, help="host decode threads (default: the preset's)")
-    p.add_argument("--device", default="cuda", help="'cuda' (default) or 'cpu'")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default: cuda:LOCAL_RANK under torchrun), 'cuda:N' (every rank on device N) or 'cpu'")
+    p.add_argument("--dist_backend", choices=mesh.BACKENDS, default=None,
+                   help="collectives of a run of several ranks (default: nccl on CUDA, gloo on the CPU)")
+    p.add_argument("--dist_init", default="env://",
+                   help="the ranks' rendezvous: env:// (torchrun's) or file:///shared/path")
     p.add_argument("-n", "--dry-run", action="store_true",
                    help="print the resolved config and exit before any data, device or VGG is touched")
     args = p.parse_args(argv)
@@ -172,6 +227,8 @@ def main(argv=None):
     }
     if args.gamma is not None:
         overrides["loss.r1_gamma"] = args.gamma
+    if args.kimg is not None:
+        overrides["total_kimg"] = args.kimg
     if args.kimg_per_tick is not None:
         overrides["kimg_per_tick"] = args.kimg_per_tick
     if args.workers is not None:
@@ -186,9 +243,15 @@ def main(argv=None):
         overrides["ada.kimg"] = 100
     if args.fmaps is not None:
         overrides["model.channel_base"] = int(args.fmaps * 32768)
+    _, world, local_rank = mesh.env_rank_world()
+    if config.batch_size % world:
+        raise SystemExit(f"--batch {config.batch_size} must divide over the {world} ranks")
     if args.accum is not None:
-        if config.batch_size % args.accum:
-            raise SystemExit(f"--accum {args.accum} must divide --batch {config.batch_size}")
+        per_rank = config.batch_size // world
+        if per_rank % args.accum:
+            where = (f"--batch {per_rank}" if world == 1 else
+                     f"the per-rank batch {per_rank} (--batch {config.batch_size} over {world} ranks)")
+            raise SystemExit(f"--accum {args.accum} must divide {where}")
         overrides["accum_steps"] = args.accum
     config = replace_nested(config, **overrides)
     if args.dry_run:
@@ -198,7 +261,18 @@ def main(argv=None):
         return None
     if args.synthetic <= 0 and args.data is None:
         raise SystemExit("--data DIR or --synthetic N is required")
-    device = resolve_device(args.device)
+    backend = args.dist_backend or ("nccl" if torch.device(args.device).type == "cuda" else "gloo")
+    device = rank_device(args.device, backend, world, local_rank)
+    group = mesh.initialize_distributed(backend, init_method=args.dist_init)
+    try:
+        return _train(args, config, resume, resume_desc, device, group)
+    finally:
+        if group is not None:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, config, resume, resume_desc, device, group):
+    main_rank = mesh.rank(group) == 0
 
     from ..data.dataset import SyntheticUvitonDataset, UvitonDatasetFull
     from ..train.loop import training_loop
@@ -210,20 +284,26 @@ def main(argv=None):
             if not os.path.exists(args.vgg_ckpt):
                 raise SystemExit(f"--vgg_ckpt {args.vgg_ckpt}: no such file (nothing is downloaded)")
             vgg = load_torch_vgg19(args.vgg_ckpt, device)
-            print(f"loaded VGG19 weights from {args.vgg_ckpt}")
+            if main_rank:
+                print(f"loaded VGG19 weights from {args.vgg_ckpt}")
         else:
-            print("WARNING: no --vgg_ckpt; the perceptual loss uses a randomly initialized VGG19")
+            if main_rank:
+                print("WARNING: no --vgg_ckpt; the perceptual loss uses a randomly initialized VGG19")
             vgg = init_vgg19(torch.Generator().manual_seed(0), device)
 
     if args.synthetic > 0:
         dataset, desc = SyntheticUvitonDataset(num_samples=args.synthetic, seed=args.seed), "-synthetic"
     else:
         dataset, desc = UvitonDatasetFull(args.data, random_seed=args.seed), ""
-    run_dir = make_run_dir(args.outdir, f"{args.cfg}-batch{config.batch_size}{desc}{resume_desc}")
-    print(f"run dir: {run_dir}; device: {device}; {len(dataset)} training samples")
-    trainer, state, records = training_loop(run_dir, dataset, config, device=device, vgg=vgg,
-                                            resume=resume, total_kimg=args.kimg)
-    return {"run_dir": run_dir, "trainer": trainer, "state": state, "records": records}
+    run_dir = None
+    if main_rank:
+        run_dir = make_run_dir(args.outdir, f"{args.cfg}-batch{config.batch_size}{desc}{resume_desc}")
+        ranks = f"; {mesh.world(group)} ranks over {torch.distributed.get_backend(group)}" if group is not None else ""
+        print(f"run dir: {run_dir}; device: {device}; {len(dataset)} training samples{ranks}")
+    trainer, state, records = training_loop(run_dir, dataset, config, device=device, vgg=vgg, resume=resume,
+                                            group=group)
+    return {"run_dir": run_dir, "trainer": trainer, "state": state, "records": records,
+            "rank": mesh.rank(group), "world": mesh.world(group)}
 
 
 if __name__ == "__main__":

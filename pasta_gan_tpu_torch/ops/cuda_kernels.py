@@ -15,8 +15,10 @@ Kernels are built with nvcc into `pasta_gan_tpu_torch/build/` at first use
 library's file name hashes the source, every header under csrc/ and the
 flags, so an edited header rebuilds its includers); each
 C entry point launches on the stream it is given and returns
-`cudaGetLastError()`.  `CudaKernel.launch` raises on a nonzero return and
-adds one to `launches` for every launch, and nowhere else.
+`cudaGetLastError()`.  `CudaKernel.launch` takes the tensors' device in
+place of that stream, passes the device's current stream with the device
+made current, raises on a nonzero return and adds one to `launches` for
+every launch, and nowhere else.
 """
 
 from __future__ import annotations
@@ -77,7 +79,18 @@ class CudaKernel:
         return self._fn
 
     def launch(self, *args) -> None:
-        rc = self._function()(*args)
+        """Launch with the C entry point's arguments, the last of which is the
+        device of the kernel's tensors in place of the stream: the kernel runs
+        on that device's current stream, with that device made current for
+        the call when it is not (CUDA refuses a launch into a stream of
+        another device, as `--dp` serving over several cards makes)."""
+        *args, device = args
+        fn, stream = self._function(), stream_of(device)
+        if device.index is None or device.index == torch.cuda.current_device():
+            rc = fn(*args, stream)
+        else:
+            with torch.cuda.device(device):
+                rc = fn(*args, stream)
         if rc != 0:
             raise RuntimeError(f"{self.name} kernel launch failed with CUDA error {rc}")
         self.launches += 1

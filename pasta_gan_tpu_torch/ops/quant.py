@@ -41,7 +41,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .cuda_kernels import INT8_CONV, check_tensor, stream_of
+from .cuda_kernels import INT8_CONV, check_tensor
 
 INT8_MODES = ("int8", "int8_calib", "int8_static")
 OUT_DTYPES = (torch.float32, torch.bfloat16)
@@ -273,7 +273,7 @@ def launch_kernel(ops: KernelOperands, sx: torch.Tensor, sw: torch.Tensor, out: 
     INT8_CONV.launch(ops.x.data_ptr(), ops.w.data_ptr(), ops.taps.data_ptr(), ops.ntaps.data_ptr(), sx.data_ptr(),
                      int(sx.numel() == N), sw.data_ptr(), out.data_ptr(), int(out.dtype == torch.bfloat16), N, cp,
                      H, W, O, ops.out_hw[0], ops.out_hw[1], ops.stride, ops.dilation, kp, ops.taps.shape[1],
-                     stream_of(ops.x.device))
+                     ops.x.device)
 
 
 def _int8_conv_kernel(xq, wq, sx, sw, stride, padding_hw, lhs_dilation, out_dtype):

@@ -29,7 +29,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from .cuda_kernels import DOWN2, UP2, check_tensor, stream_of
+from .cuda_kernels import DOWN2, UP2, check_tensor
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -100,7 +100,7 @@ def _launch(kernel, x, out_hw, arg, gain):
     y = torch.empty((N, C) + tuple(out_hw), dtype=x.dtype, device=dev)
     if y.numel():
         kernel.launch(x.data_ptr(), y.data_ptr(), int(x.dtype == torch.bfloat16), N * C, H, W, arg,
-                      float(gain), stream_of(dev))
+                      float(gain), dev)
     return y
 
 

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .cuda_kernels import COMPOSITE, DENORM_WARP, NORM_WARP, check_tensor, stream_of
+from .cuda_kernels import COMPOSITE, DENORM_WARP, NORM_WARP, check_tensor
 from .warp_math import warp_coords
 
 # cv2's `== 255` on uint8 masks, as a float32 threshold.
@@ -100,7 +100,7 @@ def norm_warp(src0, src1, minv, valid, n0: int, out_hw) -> torch.Tensor:
     out = torch.empty((B, N, C, h, w), dtype=torch.float32, device=dev)
     NORM_WARP.launch(
         src0.data_ptr(), src1.data_ptr(), minv.data_ptr(), valid.data_ptr(), out.data_ptr(),
-        B, N, n0, H, W, h, w, C, stream_of(dev),
+        B, N, n0, H, W, h, w, C, dev,
     )
     return out
 
@@ -172,7 +172,7 @@ def denorm_warp(srcs, minv, valid, out_hw, border: str = "constant") -> torch.Te
     out = torch.empty((B, N, C, H, W), dtype=torch.float32, device=dev)
     DENORM_WARP.launch(
         srcs.data_ptr(), minv.data_ptr(), valid.data_ptr(), out.data_ptr(),
-        B, N, C, Hs, Ws, H, W, int(border == "replicate"), stream_of(dev),
+        B, N, C, Hs, Ws, H, W, int(border == "replicate"), dev,
     )
     return out
 
@@ -296,6 +296,6 @@ def composite(srcs, minv, valid, out_hw, groups, erode_parts, hand_parts):
         srcs.data_ptr(), minv.data_ptr(), valid.data_ptr(), g_out.data_ptr(),
         h_out.data_ptr() if hand_parts else None,
         B, N, Hs, Ws, H, W, n_groups, group_bits, erode_bits, hand_bits, len(hand_parts),
-        MASK_SATURATION_THRESHOLD, stream_of(dev),
+        MASK_SATURATION_THRESHOLD, dev,
     )
     return g_out, h_out

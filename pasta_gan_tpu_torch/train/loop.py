@@ -25,10 +25,23 @@ last included.
 Phase times are host wall times of work that ends in a synchronise (the
 stats read back each step), so they are what the card took plus what the
 host added; `Timing/data` is the wait for the loader plus the routing.
+
+Several cards (`group`, a `torch.distributed` process group of one process
+per card): as in the JAX loop's multi-process mode, each rank loads and
+routes its 1/world of the global batch (`config.batch_size`, which the EMA
+and ADA formulas keep reading) at the stream positions `start + j*world +
+rank`, with its own erasure draws; the state is made on every rank from the
+same seed (or resumed from the same file) and then replicated from rank 0;
+the step averages gradients and stats over the ranks, so every rank's stats
+are the means; before every snapshot G and D are checked bitwise equal on
+every rank (`parallel.mesh.check_replication_consistency`), and only rank 0
+writes: training_options.json, stats.jsonl, the grids, the snapshots and the
+train state.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import multiprocessing
 import os
@@ -45,18 +58,24 @@ import torch
 
 from ..data.dataset import collate, prepare_train_batch, prepare_tryon_grid_batch
 from ..io.checkpoints import restore_train_state, save_snapshot, save_train_state
+from ..parallel import mesh
 from ..runtime.config import TrainConfig, to_json
 from ..runtime.stats import Collector, JsonlLogger
 from ..utils import parsing_to_rgb, save_image_grid
 from .step import GANTrainer
 
 
-def batch_indices(n: int, batch_size: int, seed: int, b: int) -> List[int]:
-    """Dataset indices of batch b: stream positions b*batch_size ... of the
-    per-epoch permutations `np.random.default_rng((seed, epoch)).permutation(n)`."""
+def batch_indices(n: int, batch_size: int, seed: int, b: int, rank: int = 0, world: int = 1) -> List[int]:
+    """Dataset indices of rank `rank`'s batch b of `batch_size`: stream
+    positions b*batch_size*world + j*world + rank (j < batch_size) of the
+    per-epoch permutations `np.random.default_rng((seed, epoch)).permutation(n)`;
+    the world's ranks take the global batch b between them
+    (`pasta_gan_tpu/train/loop.py:InfiniteLoader._batch_indices`)."""
     perms: Dict[int, np.ndarray] = {}
     out = []
-    for pos in range(b * batch_size, (b + 1) * batch_size):
+    start = b * batch_size * world
+    for j in range(batch_size):
+        pos = start + j * world + rank
         e = pos // n
         if e not in perms:
             perms[e] = np.random.default_rng((seed, e)).permutation(n)
@@ -88,13 +107,14 @@ def _from_shared(name: str, layout) -> Dict[str, np.ndarray]:
         shm.unlink()
 
 
-def _loader_worker(dataset, batch_size: int, seed: int, wid: int, num_workers: int, out, stop) -> None:
+def _loader_worker(dataset, batch_size: int, seed: int, rank: int, world: int, wid: int, num_workers: int, out,
+                   stop) -> None:
     """Build batches wid, wid + num_workers, ... into `out` (blocks when full)
     until `stop` is set; a failure is sent as its traceback."""
     b = wid
     try:
         while not stop.is_set():
-            batch = collate([dataset[i] for i in batch_indices(len(dataset), batch_size, seed, b)])
+            batch = collate([dataset[i] for i in batch_indices(len(dataset), batch_size, seed, b, rank, world)])
             out.put(("batch", _to_shared(batch)))
             b += num_workers
     except Exception:
@@ -107,7 +127,7 @@ class InfiniteLoader:
     loop.py:InfiniteLoader` on one process, which uses threads).
 
     Batch b holds the dataset indices `batch_indices(len(dataset),
-    batch_size, seed, b)`.  Worker w builds the batches b = w (mod
+    batch_size, seed, b, rank, world)`: `batch_size` is the per-rank batch.  Worker w builds the batches b = w (mod
     num_workers) in order and writes each into a shared-memory block, whose
     name goes into the worker's own bounded queue of
     ceil((prefetch + num_workers) / num_workers) batches; a receiving thread
@@ -124,14 +144,16 @@ class InfiniteLoader:
     with its traceback; `close()` (or leaving a `with` block) stops them and
     unlinks every block still queued."""
 
-    def __init__(self, dataset, batch_size: int, seed: int = 0, prefetch: int = 4, num_workers: int = 1):
+    def __init__(self, dataset, batch_size: int, seed: int = 0, prefetch: int = 4, num_workers: int = 1,
+                 rank: int = 0, world: int = 1):
         self.num_workers = max(1, num_workers)
         ctx = multiprocessing.get_context("spawn")
         depth = -(-(prefetch + self.num_workers) // self.num_workers)
         self._stop_workers = ctx.Event()
         self._queues = [ctx.Queue(maxsize=depth) for _ in range(self.num_workers)]
         self._procs = [ctx.Process(target=_loader_worker, daemon=True,
-                                   args=(dataset, batch_size, seed, w, self.num_workers, q, self._stop_workers))
+                                   args=(dataset, batch_size, seed, rank, world, w, self.num_workers, q,
+                                         self._stop_workers))
                        for w, q in enumerate(self._queues)]
         for p in self._procs:
             p.start()
@@ -280,20 +302,43 @@ def _save_snapshot(run_dir: str, state, config: TrainConfig, cur_nimg: int, verb
         print(f"saved {snap} and train-state-latest.pt at step {state.step}", flush=True)
 
 
-def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg=None,
-                  resume: Optional[str] = None, total_kimg: Optional[float] = None, verbose: bool = True):
-    """Train until `total_kimg` (default: the config's) thousand images.
+def replicate_state(state, group) -> None:
+    """Rank 0's train state on every rank of `group`: the networks, the
+    optimizers' moments on the state's device (on the card, Adam keeps its
+    step counts on the host; they are equal on every rank) and the scalar
+    state."""
+    if group is None:
+        return
+    for module in (state.G, state.D, state.G_ema):
+        mesh.replicate_module(module, group=group)
+    moments = [v for opt in (state.g_opt, state.d_opt) for per in opt.state.values()
+               for v in per.values() if torch.is_tensor(v) and v.device == state.w_avg.device]
+    mesh.replicate_tensors([*moments, state.w_avg, state.pl_mean, state.ada_p, state.ada_signs_sum,
+                            state.ada_signs_count], group=group)
+
+
+def training_loop(run_dir: Optional[str], dataset, config: TrainConfig, device="cuda", vgg=None,
+                  resume: Optional[str] = None, verbose: bool = True, group=None):
+    """Train until `config.total_kimg` thousand images, on the ranks of
+    `group` (None: this process alone).  Only rank 0 writes into `run_dir`;
+    the other ranks may pass None.
 
     Returns (trainer, state, records): one record per step with its stats
     and phase times ("Timing/data", "Timing/Gmain_Dmain", "Timing/Greg",
     "Timing/Dreg")."""
     device = torch.device(device)
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "training_options.json"), "w") as f:
-        f.write(to_json(config))
-    total_kimg = config.total_kimg if total_kimg is None else total_kimg
+    rank, world = mesh.rank(group), mesh.world(group)
+    main = rank == 0
+    verbose = verbose and main
+    if config.batch_size % world:
+        raise ValueError(f"the global batch {config.batch_size} does not split over {world} ranks")
+    if main:
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "training_options.json"), "w") as f:
+            f.write(to_json(config))
+    total_kimg = config.total_kimg
 
-    trainer = GANTrainer(config, vgg=vgg, device=device, noise_seed=config.random_seed)
+    trainer = GANTrainer(config, vgg=vgg, device=device, noise_seed=config.random_seed, group=group)
     state = trainer.init_state(torch.Generator().manual_seed(config.random_seed))
     if resume is not None:
         if zipfile.is_zipfile(resume):  # this package's train state (a torch.save zip)
@@ -304,8 +349,10 @@ def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg
             from ..io import transfer
 
             transfer.transfer_from_network_pickle(state, resume, verbose=verbose)
+    replicate_state(state, group)
 
-    data_gen = torch.Generator().manual_seed(config.random_seed + 1)
+    data_seed = config.random_seed + 1
+    data_gen = torch.Generator().manual_seed(data_seed if group is None else mesh.rank_seed(data_seed, rank))
     d_reg_interval = config.d_reg_interval or 0
     g_reg_interval = (config.g_reg_interval or 0) if config.loss.pl_weight > 0 else 0
     snap_ticks, img_ticks = config.network_snapshot_ticks, config.image_snapshot_ticks
@@ -315,10 +362,13 @@ def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg
     records: List[Dict[str, float]] = []
     collector = Collector()
     if verbose:
-        print(f"Training for {total_kimg} kimg (batch {config.batch_size}) on {device}...")
-    loader = InfiniteLoader(dataset, config.batch_size, seed=config.random_seed, num_workers=config.data_workers)
-    with loader, JsonlLogger(os.path.join(run_dir, "stats.jsonl")) as jsonl:
-        grids = SnapshotGrids(run_dir, dataset, config, device) if img_ticks else None
+        ranks = f", {world} ranks of {config.batch_size // world}" if world > 1 else ""
+        print(f"Training for {total_kimg} kimg (batch {config.batch_size}{ranks}) on {device}...")
+    loader = InfiniteLoader(dataset, config.batch_size // world, seed=config.random_seed,
+                            num_workers=config.data_workers, rank=rank, world=world)
+    jsonl = JsonlLogger(os.path.join(run_dir, "stats.jsonl")) if main else contextlib.nullcontext()
+    with loader, jsonl:
+        grids = SnapshotGrids(run_dir, dataset, config, device) if img_ticks and main else None
         while True:
             t0 = time.time()
             batch = prepare_train_batch(next(loader), data_gen, device=device)
@@ -352,11 +402,12 @@ def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg
             collector.update()
             sec_per_tick = tick_end - tick_start_time
             sec_per_kimg = sec_per_tick / max((cur_nimg - tick_start_nimg) / 1000.0, 1e-8)
-            jsonl.write(collector, **{
-                "Progress/tick": cur_tick, "Progress/kimg": cur_nimg / 1e3,
-                "Timing/sec_per_tick": sec_per_tick, "Timing/sec_per_kimg": sec_per_kimg,
-                "Timing/total_sec": tick_end - start_time, "Progress/step": state.step,
-            })
+            if main:
+                jsonl.write(collector, **{
+                    "Progress/tick": cur_tick, "Progress/kimg": cur_nimg / 1e3,
+                    "Timing/sec_per_tick": sec_per_tick, "Timing/sec_per_kimg": sec_per_kimg,
+                    "Timing/total_sec": tick_end - start_time, "Progress/step": state.step,
+                })
             if verbose:
                 # only ticks that ran R1 or Greg have their penalties
                 r1 = "".join(f" {name} {collector.mean(key):.4g}" for name, key in (
@@ -369,7 +420,11 @@ def training_loop(run_dir: str, dataset, config: TrainConfig, device="cuda", vgg
                 grids.save(state.G_ema, f"{cur_nimg // 1000:06d}")
             # the JAX loop's cadence; the port also saves a run that ends in tick 0
             if done or (snap_ticks and cur_tick > 0 and cur_tick % snap_ticks == 0):
-                _save_snapshot(run_dir, state, config, cur_nimg, verbose)
+                # reference misc.check_ddp_consistency before every snapshot (JAX loop :365-370)
+                mesh.check_replication_consistency(state.G, group, prefix="G.")
+                mesh.check_replication_consistency(state.D, group, prefix="D.")
+                if main:
+                    _save_snapshot(run_dir, state, config, cur_nimg, verbose)
             cur_tick += 1
             tick_start_nimg, tick_start_time = cur_nimg, time.time()
             if done:

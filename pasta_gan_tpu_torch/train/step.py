@@ -31,7 +31,20 @@ as in the calls one by one; without a pipe the calls run one by one.
 Gradients come from `torch.autograd.grad` over one network's parameters, so
 the other network accumulates nothing; microbatches (`accum_steps`) add
 their gradients and divide by their count.  NaN/Inf gradients are scrubbed
-before each Adam update.  Batches are the NHWC dicts of
+before each Adam update.
+
+Data parallel (`group`, a `torch.distributed` process group; None on one
+process): each rank runs the step on its 1/world of the global batch, and
+`parallel.mesh.all_reduce_mean` averages over the ranks at each of the JAX
+step's `_pmean` sites, before the scrub: Gmain's and Dmain's gradients with
+their stats (`w_mean` and `Loss/signs/real` among them, so G_ema's w_avg and
+the ADA controller read the means), R1's gradients and stats, and Greg's
+gradients, stats and pl_mean.  The explicit reduce (not
+`DistributedDataParallel`, whose hooks ride `backward()`) suits gradients
+taken with `torch.autograd.grad` and double backwards.  Each rank's noise,
+pipe and latent generators are seeded with the rank folded in
+(`mesh.rank_seed`), as JAX folds `axis_index` into the step's key; the
+minibatch-std groups stay within a rank, as in JAX.  Batches are the NHWC dicts of
 `data/dataset.py:prepare_train_batch`.
 """
 
@@ -46,6 +59,7 @@ import torch
 
 from ..models.generator_full import GeneratorFull, cat_feats_dict, nchw
 from ..nn.discriminator import Discriminator
+from ..parallel import mesh
 from ..runtime.config import TrainConfig, lazy_reg_scaling
 from . import losses
 from .state import TrainState
@@ -77,7 +91,7 @@ class GANTrainer:
     """Builds the networks and optimizers of a config and runs its phases."""
 
     def __init__(self, config: TrainConfig, vgg: Optional[VGG19Features] = None, device="cuda",
-                 noise_seed: int = 0, augment_fn: Optional[Callable] = None):
+                 noise_seed: int = 0, augment_fn: Optional[Callable] = None, group=None):
         bad = unsupported_features(config)
         if bad:
             raise ValueError("this training path does not run: " + "; ".join(bad))
@@ -85,6 +99,9 @@ class GANTrainer:
         self.device = torch.device(device)
         self.dtype = torch.bfloat16 if config.compute_dtype == "bfloat16" else torch.float32
         self.vgg = vgg
+        self.group = group  # the ranks the gradients and stats are averaged over; None: this process alone
+        if group is not None:
+            noise_seed = mesh.rank_seed(noise_seed, mesh.rank(group))
         self.g_opt_cfg = lazy_reg_scaling(config.g_opt, config.g_reg_interval)
         self.d_opt_cfg = lazy_reg_scaling(config.d_opt, config.d_reg_interval)
         self.noise = torch.Generator(device=self.device).manual_seed(noise_seed)
@@ -284,6 +301,11 @@ class GANTrainer:
                 stats[k] = stats[k] + v if k in stats else v
         return [g / A for g in grads], {k: v / A for k, v in stats.items()}
 
+    def _pmean(self, grads: List[torch.Tensor], stats: Dict[str, torch.Tensor]) -> None:
+        """The JAX step's `_pmean` of grads and stats, in place: their means over
+        the ranks of `group` (nothing on one process)."""
+        mesh.all_reduce_mean([*grads, *stats.values()], self.group)
+
     def _apply(self, opt: torch.optim.Optimizer, params, grads) -> None:
         for p, g in zip(params, _scrub(grads, self.config.grad_clip_posinf)):
             p.grad = g
@@ -296,10 +318,12 @@ class GANTrainer:
         p = float(state.ada_p)  # both phases augment at the step's starting p
         g_params = list(state.G.parameters())
         g_grads, g_stats = self._grads_with_accum(lambda b: self.g_loss_fn(state.G, state.D, b, p), g_params, batch)
+        self._pmean(g_grads, g_stats)  # JAX step.py:388 (grads), :415 (w_mean), :438 (stats)
         self._apply(state.g_opt, g_params, g_grads)
 
         d_params = list(state.D.parameters())
         d_grads, d_stats = self._grads_with_accum(lambda b: self.d_loss_fn(state.D, state.G, b, p), d_params, batch)
+        self._pmean(d_grads, d_stats)  # :399 (grads), :419 (Loss/signs/real), :438 (stats)
         self._apply(state.d_opt, d_params, d_grads)
 
         with torch.no_grad():
@@ -343,6 +367,7 @@ class GANTrainer:
 
         d_params = list(state.D.parameters())
         d_grads, stats = self._grads_with_accum(r1_loss, d_params, batch)
+        self._pmean(d_grads, stats)  # :491 (grads), :496 (stats)
         self._apply(state.d_opt, d_params, d_grads)
         stats["Loss/D/reg"] = stats["Loss/r1_penalty"] * scale
         return state, stats
@@ -374,6 +399,10 @@ class GANTrainer:
         grads = torch.autograd.grad(loss, g_params, allow_unused=True)
         # a parameter the image does not reach (the finetune and parsing heads) takes
         # a zero gradient, so Adam's moments decay as they do in the JAX step
-        self._apply(state.g_opt, g_params, [torch.zeros_like(p) if g is None else g for g, p in zip(grads, g_params)])
-        state.pl_mean.copy_(new_mean.detach())
-        return state, {"Loss/pl_penalty": penalty.detach(), "Loss/G/reg": loss.detach()}
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, g_params)]
+        stats = {"Loss/pl_penalty": penalty.detach().clone(), "Loss/G/reg": loss.detach().clone(),
+                 "pl_mean": new_mean.detach().clone()}
+        self._pmean(grads, stats)  # :565 (grads), :570 (stats), :575 (pl_mean)
+        self._apply(state.g_opt, g_params, grads)
+        state.pl_mean.copy_(stats.pop("pl_mean"))
+        return state, stats

@@ -49,7 +49,8 @@ def load_old(old_dir):
         "from .cuda_kernels import INT8_CONV, check_tensor, stream_of",
         "from pasta_gan_tpu_torch.ops.cuda_kernels import CudaKernel, check_tensor, stream_of, INT8_CONV as _NEW\n"
         "INT8_CONV = CudaKernel('int8_conv_old', os.path.join(OLD_DIR, 'int8_conv.cu'), 'pasta_int8_conv',"
-        " _NEW.argtypes)")
+        " _NEW.argtypes)").replace(
+        "stream_of(ops.x.device))", "ops.x.device)")  # `CudaKernel.launch` now takes the device in the stream's place
     old = types.ModuleType("old_quant")
     old.__dict__.update(os=os, OLD_DIR=os.path.abspath(old_dir))
     exec(compile(src, os.path.join(old_dir, "quant.py"), "exec"), old.__dict__)

@@ -54,6 +54,7 @@ from pasta_gan_tpu_torch.train.loop import InfiniteLoader
 
 from test_torch_generator import _jax_variables
 from test_torch_tryon import THIN, TOL, _gen_shapes, _jax_denorm_masks, _jax_tryon_forward, _near_threshold, _read_png
+from _torch_native import jax_native, jax_native_oracle  # noqa: F401  (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "upt_mini")
@@ -61,7 +62,7 @@ FIXTURE = os.path.join(REPO, "tests", "fixtures", "upt_mini")
 
 @pytest.fixture(scope="module", autouse=True)
 def oracles():
-    assert native.available(), "the JAX package's native host library did not build: no oracle for the masks"
+    jax_native()
     assert jstickman._HAS_CV2, "cv2 is missing: no oracle for the stickman's limbs"
 
 

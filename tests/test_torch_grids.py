@@ -1,4 +1,6 @@
-"""The training snapshot grids of the port vs the JAX package on the CPU.
+"""The try-on grids' routing and the grid writers of the port vs the JAX
+package on the CPU (the snapshot grids' forwards: tests/test_torch_grids_snapshot.py;
+`cli.train --img_snap 1`: tests/test_torch_grids_cli.py).
 
 * `route_patches_mix_batch` for each `swap` and `prepare_tryon_grid_batch`
   against the JAX functions run op by op (`jax.disable_jit`, as
@@ -11,21 +13,7 @@
   (both files decoded by the port's PNG decoder), for 3- and 1-channel
   images, both dranges and explicit columns; `parsing_to_rgb` equals the JAX
   function on logits, indices and single-channel indices.
-* `SnapshotGrids` on a thin GeneratorFull whose weights and noise_const
-  buffers come from one JAX variable tree: the fakes grid's forward
-  (`noise_mode="const"`) against the JAX generator's on the same batch, and
-  the try-on grid's rows (swap lower / full / upper by thirds, each row
-  routed by the JAX `prepare_tryon_grid_batch` and run through the JAX
-  generator, as `pasta_gan_tpu/train/loop.py:238-262` does, jitted): rtol 1e-2 /
-  atol 1e-2, the finetune tolerance of tests/test_torch_generator.py; the
-  parsing grid's palette pixels equal wherever the JAX logits' top two lie
-  more than 1e-3 apart.
-* `cli.train --img_snap 1` for one thin step on the CPU writes every grid
-  file at its shape (tests/test_torch_train_loop.py runs `--img_snap 0`,
-  which writes none).
 """
-
-import os
 
 import numpy as np
 import pytest
@@ -37,19 +25,14 @@ import jax.numpy as jnp
 from pasta_gan_tpu import utils as jutils
 from pasta_gan_tpu.data import dataset as jds
 from pasta_gan_tpu.data import warp as jw
-from pasta_gan_tpu.models import GeneratorFull as JaxGeneratorFull
 from pasta_gan_tpu_torch import utils as tutils
-from pasta_gan_tpu_torch.cli import train as cli_train
 from pasta_gan_tpu_torch.data import dataset as tds
 from pasta_gan_tpu_torch.data import image_io
 from pasta_gan_tpu_torch.data import warp as tw
-from pasta_gan_tpu_torch.io.from_jax import state_dict_from_jax
-from pasta_gan_tpu_torch.models import GeneratorFull
 from pasta_gan_tpu_torch.ops import warp_kernels as wk
-from pasta_gan_tpu_torch.runtime.config import TrainConfig
-from pasta_gan_tpu_torch.train import loop
 
-from test_torch_generator import _inputs, _jax_variables
+from _torch_native import jax_native_oracle  # noqa: F401  (autouse fixture)
+from test_torch_train_loop import one_torch_thread  # noqa: F401  (autouse fixture)
 
 TOL = 5e-5
 NEAR = 1e-5
@@ -143,74 +126,3 @@ def test_parsing_to_rgb_equals_jax():
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(tutils.parsing_to_rgb(torch.from_numpy(logits).numpy()),
                                   jutils.parsing_to_rgb(logits))
-
-
-def test_snapshot_grids_match_jax(tmp_path, monkeypatch):
-    cfg = dict(img_resolution=256, channel_base=512, channel_max=32)
-    jgen = JaxGeneratorFull(**cfg)
-    v = _jax_variables(jgen, _inputs(), seed=3)
-    G = GeneratorFull(**cfg)
-    G.load_state_dict(state_dict_from_jax(v, G.state_dict()), strict=True)
-    assert float(G.synthesis.b256.conv1.noise_strength.detach()) != 0  # the const maps reach the images
-    saved = {}
-
-    def capture(images, path, **kw):
-        saved[os.path.basename(path)] = (np.asarray(images), kw)
-
-    monkeypatch.setattr(loop, "save_image_grid", capture)
-    grids = loop.SnapshotGrids(str(tmp_path), tds.SyntheticUvitonDataset(num_samples=3, seed=2),
-                               TrainConfig(batch_size=3), torch.device("cpu"))
-    grids.save(G.eval(), "000000")
-    assert (grids.grid_n, grids.gnum) == (3, 3)
-
-    @jax.jit
-    def fwd(b):  # the JAX loop's snapshot forward (pasta_gan_tpu/train/loop.py:207-214)
-        _, ft, parsing = jgen.apply(v, None, b["style_input"], b["retain"], b["pose"], b["denorm_upper_img"],
-                                    b["denorm_lower_img"], b["denorm_upper_mask"], b["denorm_lower_mask"],
-                                    noise_mode="const", rngs={"noise": jax.random.PRNGKey(0)})
-        return ft, parsing
-
-    ft, parsing = fwd({k: jnp.asarray(t.numpy()) for k, t in grids.batch.items()})
-    fakes, kw = saved["fakes000000.png"]
-    assert kw == {}
-    np.testing.assert_allclose(fakes, np.asarray(ft), rtol=1e-2, atol=1e-2)
-    pal, kw = saved["parsing000000.png"]
-    assert kw == {"drange": (0, 1)}
-    top2 = np.sort(np.asarray(parsing), axis=-1)[..., -2:]
-    sure = (top2[..., 1] - top2[..., 0]) > 1e-3
-    assert sure.mean() > 0.99
-    np.testing.assert_array_equal(pal[sure], jutils.parsing_to_rgb(np.asarray(parsing))[sure])
-
-    # the try-on grid: person r (a row) wearing provider c's garments (a column)
-    rows = []
-    for r, swap in enumerate(SWAPS):  # gap = gnum // 3 = 1 row a third
-        person = {k: np.repeat(a[r:r + 1], 3, axis=0) for k, a in grids.host.items()}
-        garment = {k: a[:3] for k, a in grids.host.items()}
-        rows.append(np.asarray(fwd(jds.prepare_tryon_grid_batch(person, garment, swap=swap))[0]))
-    tryon, kw = saved["tryon_grid000000.png"]
-    assert kw == {"grid_cols": 3}
-    np.testing.assert_allclose(tryon, np.concatenate(rows, axis=0), rtol=1e-2, atol=1e-2)
-
-
-THIN = ["--device", "cpu", "--synthetic", "2", "--batch", "2", "--fmaps", str(256 / 32768), "--vgg_weight", "0",
-        "--aug", "noaug", "--workers", "1"]
-
-
-def test_cli_train_writes_every_grid(tmp_path):
-    out = cli_train.main(["--outdir", str(tmp_path), "--kimg", "0.002", "--img_snap", "1", "--snap", "0", *THIN])
-    run_dir = out["run_dir"]
-    assert out["state"].step == 1
-    # grid_n = min(16, batch 2, 2 samples): 2 images side by side; a 2 x 2 try-on grid (gnum = min(6, 2))
-    want = {name: (256, 512, 3) for name in ("reals.png", "init_denorm_upper.png", "init_denorm_lower.png",
-                                              "init_retain.png", "fakes000000.png", "parsing000000.png")}
-    want["tryon_grid000000.png"] = (512, 512, 3)
-    pngs = sorted(f for f in os.listdir(run_dir) if f.endswith(".png"))
-    assert pngs == sorted(want)
-    for name, shape in want.items():
-        img = image_io.read_image(os.path.join(run_dir, name))
-        assert img.shape == shape and img.dtype == np.uint8, name
-        assert img.any(), name
-    reals = image_io.read_image(os.path.join(run_dir, "reals.png"))
-    ds = tds.SyntheticUvitonDataset(num_samples=2, seed=0)
-    expect = np.concatenate([ds[0]["image"], ds[1]["image"]], axis=1).astype(np.int32)
-    assert int(np.abs(reals.astype(np.int32) - expect).max()) <= 1  # real_img in [-1, 1], back to 8 bits

@@ -31,6 +31,7 @@ from pasta_gan_tpu_torch.data.dataset import SyntheticUvitonDataset, collate
 from pasta_gan_tpu_torch.data.warp import route_patches_batch, route_patches_transfer_batch
 
 from test_host_router import _keypoints, _mask_blob
+from _torch_native import jax_native_oracle  # noqa: F401  (autouse fixture)
 
 KEYS = ("norm_img", "norm_img_lower", "denorm_upper_img", "denorm_lower_img", "norm_clothes_masks")
 B, H, W = 2, 128, 128

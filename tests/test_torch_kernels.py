@@ -171,7 +171,7 @@ def test_norm_warp_kernel_ragged_rows_bit_exact(cuda_device, hw, C):
     B, H, W, _ = src0.shape
     before = ck.NORM_WARP.launches
     ck.NORM_WARP.launch(src0.data_ptr(), src1.data_ptr(), minv.data_ptr(), valid.data_ptr(), odd.data_ptr(),
-                        B, minv.shape[1], n0, H, W, hw[0], hw[1], C, ck.stream_of(src0.device))
+                        B, minv.shape[1], n0, H, W, hw[0], hw[1], C, src0.device)
     torch.cuda.synchronize()
     assert ck.NORM_WARP.launches == before + 1
     torch.testing.assert_close(odd, out, rtol=0, atol=0)
@@ -293,6 +293,39 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch(kernel):
         for a, b in zip(wk.composite(*args), wk.composite_reference(*args)):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
     assert {k.name: k.launches for k in ck.KERNELS.values()} == before
+
+
+@pytest.mark.parametrize("current", [0, 1])
+def test_launch_makes_the_tensors_device_current(monkeypatch, current):
+    """`CudaKernel.launch` runs the C entry point on the current stream of the
+    device it is given, with that device current: CUDA refuses a launch into
+    a stream of another device, which `--dp` serving over several cards
+    would otherwise make (chunk r runs on cuda:r while cuda:0 is current).
+    The CUDA calls are stood in for, so this runs without a card."""
+    calls, guards = [], []
+
+    class Guard:
+        def __init__(self, device):
+            self.device = device
+
+        def __enter__(self):
+            guards.append(self.device)
+
+        def __exit__(self, *exc):
+            guards.append(None)
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: current)
+    monkeypatch.setattr(torch.cuda, "device", Guard)
+    monkeypatch.setattr(ck, "stream_of", lambda device: 7000 + device.index)
+    kernel = ck.CudaKernel("probe", "probe.cu", "probe", [])
+    monkeypatch.setattr(kernel, "_function", lambda: lambda *a: calls.append((a, list(guards))) or 0)
+    kernel.launch(3, 4, torch.device("cuda", 1))
+    assert calls == [((3, 4, 7001), [] if current == 1 else [torch.device("cuda", 1)])]
+    assert guards == ([] if current == 1 else [torch.device("cuda", 1), None]) and kernel.launches == 1
+    monkeypatch.setattr(kernel, "_function", lambda: lambda *a: 700)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        kernel.launch(torch.device("cuda", 0))
+    assert kernel.launches == 1
 
 
 def test_kernel_wrappers_reject_bad_cuda_inputs_without_a_card():

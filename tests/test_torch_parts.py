@@ -34,6 +34,7 @@ from pasta_gan_tpu_torch.data import parts as tparts
 from test_parts import _keypoints, _synthetic_parsing
 from test_torch_calc_metrics import METRIC_RTOL, _rows, _write_folder
 from test_torch_train_loop import one_torch_thread  # noqa: F401  (autouse fixture)
+from _torch_native import jax_native_oracle  # noqa: F401  (autouse fixture)
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures", "upt_mini", "UPT_subset1_256_192")
 EMPTY = "upt_0004"  # its keypoint file lists no people

@@ -33,6 +33,7 @@ from pasta_gan_tpu_torch.ops import warp_kernels as wk
 from pasta_gan_tpu_torch.ops.warp_math import inv3x3, warp_coords
 
 from test_torch_kernels import ERODE, GROUPS, HANDS, _composite_inputs, _denorm_inputs, _homographies, _norm_inputs
+from _torch_native import jax_native_oracle  # noqa: F401  (autouse fixture)
 
 TOL = 5e-5
 NEAR = 1e-5

@@ -19,6 +19,7 @@ from pasta_gan_tpu_torch.data import dataset as tds
 from pasta_gan_tpu_torch.data import warp as tw
 
 from test_torch_train_loop import one_torch_thread  # noqa: F401  (autouse fixture)
+from _torch_native import jax_native_oracle  # noqa: F401  (autouse fixture)
 
 TOL = 5e-5
 NEAR = 1e-5

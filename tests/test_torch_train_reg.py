@@ -240,7 +240,8 @@ def _dry_run_config(main, argv, capsys):
     [],
     ["--cfg", "paper256", "--batch", "8", "--pl_weight", "2", "--contextual_weight", "1", "--gamma", "5",
      "--aug", "fixed", "--p", "0.2", "--kimg_per_tick", "2", "--img_snap", "3", "--workers", "2",
-     "--fmaps", "0.25", "--accum", "2", "--dtype", "float32", "--ada_exact_geom", "--seed", "7", "--snap", "5"],
+     "--fmaps", "0.25", "--accum", "2", "--dtype", "float32", "--ada_exact_geom", "--seed", "7", "--snap", "5",
+     "--kimg", "25"],
     ["--aug", "noaug", "--vgg_weight", "0", "--l1_weight", "10", "--mask_weight", "0", "--augpipe", "bgcfnc",
      "--target", "0.5", "--ada_stack_calls", "RESUME"],
 ])
@@ -256,3 +257,5 @@ def test_cli_dry_run_prints_the_jax_config(flags, tmp_path, capsys):
     assert not (tmp_path / "runs").exists()
     if "RESUME" in flags:
         assert ours["ada"]["kimg"] == 100
+    if "--kimg" in flags:
+        assert ours["total_kimg"] == 25

@@ -44,6 +44,7 @@ from pasta_gan_tpu_torch.metrics import SimpleConvFeatures
 from pasta_gan_tpu_torch.models import GeneratorFull, cat_feats_dict
 
 from test_torch_generator import _jax_variables
+from _torch_native import jax_native, jax_native_oracle  # noqa: F401  (autouse fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = 5e-5
@@ -101,10 +102,9 @@ def _jax_tryon_forward(jgen, variables, batch, w_avg, psi):
 def test_synthetic_fixture_matches_jax():
     """Against the JAX package's default drawing branches: the native host
     library's polygon fill and dilation, and cv2.line for the limbs."""
-    from pasta_gan_tpu import native
     from pasta_gan_tpu.data import stickman
 
-    assert native.available(), "the JAX package's native host library did not build: no oracle for the masks"
+    jax_native()
     assert stickman._HAS_CV2, "cv2 is missing: no oracle for the stickman's limbs"
     ours, ref = tds.SyntheticUvitonDataset(num_samples=3, seed=2), jds.SyntheticUvitonDataset(num_samples=3, seed=2)
     for i in range(3):
@@ -219,7 +219,7 @@ def test_port_imports_no_jax_cv2_pil_or_jax_package():
         "metrics/__init__", "metrics/formulas", "metrics/feature_stats", "metrics/detectors_manifest",
         "metrics/inception", "metrics/vgg16", "metrics/extractors", "metrics/ppl", "metrics/metric_main",
         "cli/calc_metrics", "nn/flow", "models/generator_v1", "nn/patch_discriminator", "data/host_router",
-        "cli/dataset_tool", "cli/draw_point")}
+        "cli/dataset_tool", "cli/draw_point", "parallel/__init__", "parallel/mesh")}
     assert later_slices <= rel, sorted(later_slices - rel)
     bad = [(os.path.relpath(f, REPO), mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in FORBIDDEN]

@@ -33,6 +33,7 @@ from pasta_gan_tpu_torch.io.checkpoints import save_snapshot
 from pasta_gan_tpu_torch.models import GeneratorV18
 
 from test_torch_tryon import _near_threshold, _read_png
+from _torch_native import jax_native_oracle  # noqa: F401  (autouse fixture)
 
 TOL = 5e-5
 THIN = dict(img_resolution=256, channel_base=512, channel_max=32)
