@@ -4,7 +4,7 @@
   python3 chip_smoke.py    # needs one NVIDIA GPU; the last line is the JSON verdict
 
 Phases, each fatal on failure:
-1. Build the six kernels from `pasta_gan_tpu_torch/csrc/` with nvcc (one
+1. Build the seven kernels from `pasta_gan_tpu_torch/csrc/` with nvcc (one
    process per source, all started together).
 2. Kernel phase.  The routing kernels at the try-on paths' batch-16 shapes
    (norm_warp and composite on the Full route; norm_warp at 8 channels,
@@ -108,12 +108,14 @@ Phases, each fatal on failure:
    --calib_batches 2` and `--quant int8` (Full, 16 synthetic pairs),
    `--generator v18 --quant int8_static`, and `cli.test_512 --quant
    int8_static` (fullbody, the fixture's 8 pairs, fused route); the
-   int8_conv launches of one batch-16 Full int8_static forward and one
-   batch-8 Generator512 forward (bf16) counted by class, every class held to
-   its plain version at max abs error 0 and timed through its wrapper and
-   its C entry point beside its bound (int8 operations at 1979 TOP/s, or
-   bytes), the plain version, im2col + `torch._int_mm` (`library_ms`) and
-   the bf16 cuDNN conv of the same geometry; int8 and int8_static against
+   int8_conv and quantize_pack launches of one batch-16 Full int8_static
+   forward and one batch-8 Generator512 forward (bf16) counted by class,
+   every class held to its plain version at max abs error 0 and timed
+   through its wrapper (the packed operands the forward hands it) and its C
+   entry point beside its bound (int8_conv: int8 operations at 1979 TOP/s,
+   or bytes; quantize_pack: bytes), the plain version and, for int8_conv,
+   im2col + `torch._int_mm` (`library_ms`) and the bf16 cuDNN conv of the
+   same geometry; int8 and int8_static against
    the fp32 forward (batch 16); end-to-end timing and profiles (Full in both
    modes at batch 16 and 1, 512 int8_static at batch 8 and 1) and peak
    memory; the card against the CPU (int8_static, full width, batch 2, fp32,
@@ -215,7 +217,8 @@ REPLACES = {"norm_warp": "pasta_gan_tpu/ops/pallas_warp.py:172",
             "up2": "pasta_gan_tpu/ops/pallas_upfirdn.py:60",
             "down2": "pasta_gan_tpu/ops/pallas_upfirdn.py:134",
             # not a Pallas kernel: XLA's s8 x s8 -> s32 conv_general_dilated in int8_conv_like
-            "int8_conv": "pasta_gan_tpu/ops/quant.py:131"}
+            "int8_conv": "pasta_gan_tpu/ops/quant.py:131",
+            "quantize_pack": "none: XLA fused the quantize in pasta_gan_tpu/ops/quant.py:66"}
 # bf16 vs fp32 forward, ||bf16 - fp32|| / ||fp32|| of the finetune image.  bf16
 # keeps 8 mantissa bits (2^-8 = 0.4 % per rounding); with this script's
 # snapshot init at channel_base 512 on the CPU a correct bf16 path gives 0.031,
@@ -224,9 +227,9 @@ BF16_REL_L2 = 0.1
 # the kernels each driven path launches (and no other)
 FUSED = {"norm_warp", "composite", "up2", "down2"}
 SEPARATE = {"norm_warp", "denorm_warp", "up2", "down2"}
-# int8 serving: the int8 conv, the float up-convs below 32 rows and the skips' upsample (up2); the down-convs
-# run int8 after a plain FIR (no down2)
-INT8 = {"norm_warp", "composite", "up2", "int8_conv"}
+# int8 serving: the int8 conv and its quantize pass, the float up-convs below 32 rows and the skips' upsample
+# (up2); the down-convs run int8 after a plain FIR (no down2)
+INT8 = {"norm_warp", "composite", "up2", "int8_conv", "quantize_pack"}
 PATH_KERNELS = {"serving_full": FUSED, "serving_v18_fused": FUSED, "serving_v18_separate": SEPARATE,
                 "serving_512_fused": FUSED, "serving_512_separate": SEPARATE, "training": FUSED,
                 "training_ada": FUSED, "training_reg": FUSED, "serving_real": FUSED, "training_real": FUSED,
@@ -930,7 +933,7 @@ def tryon_batches(torch, collate, ds):
     """(B, person, garment, iters) at batch 16 and batch 1, on the card."""
     p16 = on_card(torch, collate([ds[i] for i in range(16)]))
     g16 = on_card(torch, collate([ds[(i + 1) % 16] for i in range(16)]))
-    return [(16, p16, g16, 10), (1, on_card(torch, collate([ds[0]])), on_card(torch, collate([ds[1]])), 20)]
+    return [(16, p16, g16, 10), (1, on_card(torch, collate([ds[0]])), on_card(torch, collate([ds[1]])), 10)]
 
 
 def slice_phase(torch, wk, ck, tag, tmp):
@@ -1185,7 +1188,7 @@ def serving_512_phase(torch, wk, ck, tag, tmp):
     p1, g1 = (on_card(torch, d) for d in fixture_512_batch(tds, 1))
     torch.cuda.reset_peak_memory_stats()
     time_tryon(torch, cli, gen, w_avg, lambda p, gm: tds.prepare_tryon_batch_512(p, gm, "fullbody", device="cuda"),
-               [(8, p8, g8, 10), (1, p1, g1, 20)], "512 fullbody", tag, res=512)
+               [(8, p8, g8, 10), (1, p1, g1, 10)], "512 fullbody", tag, res=512)
     print(f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated (512) [{tag}]", flush=True)
     del gen
     torch.cuda.empty_cache()
@@ -1208,28 +1211,34 @@ INT8_PERTURB, INT8_SENSITIVITY_FACTOR = 1e-6, 2.0
 
 def int8_classes(torch, fn):
     """Run fn() once and count its int8_conv calls by class (kh, stride,
-    dilation, C, O, H, W, output dtype, scale kind, paddings, batch), through a
-    counting wrapper around `ops/quant.py:int8_conv` that is removed again
-    before returning."""
+    dilation, C, O, H, W, output dtype, scale kind, paddings, batch) and its
+    quantize_pack calls by class (N, C, H, W, input dtype, scale kind),
+    through counting wrappers around `ops/quant.py:int8_conv_packed` and
+    `quantize_pack` that are removed again before returning."""
     from collections import Counter
 
     from pasta_gan_tpu_torch.ops import quant as tq
 
-    hist, conv = Counter(), tq.int8_conv
+    convs, quants, conv, quantize = Counter(), Counter(), tq.int8_conv_packed, tq.quantize_pack
 
-    def counted(xq, wq, sx, sw, stride=1, padding_hw=((0, 0), (0, 0)), lhs_dilation=1, out_dtype=torch.bfloat16):
-        N, C, H, W = xq.shape
-        hist[(wq.shape[2], stride, lhs_dilation, C, wq.shape[0], H, W, str(out_dtype)[6:],
-              "scalar" if sx.numel() == 1 else "per_sample", tuple(map(tuple, padding_hw)), N)] += 1
-        return conv(xq, wq, sx, sw, stride, padding_hw, lhs_dilation, out_dtype)
+    def conv_counted(xa, pw, out_dtype=torch.bfloat16):
+        N, H, W, _ = xa.q.shape
+        O, C, kh, _ = pw.wq.shape
+        convs[(kh, pw.stride, pw.dilation, C, O, H, W, str(out_dtype)[6:],
+               "scalar" if xa.scale.numel() == 1 else "per_sample", pw.padding_hw, N)] += 1
+        return conv(xa, pw, out_dtype)
 
-    tq.int8_conv = counted
+    def quantize_counted(x, s):
+        quants[tuple(x.shape) + (str(x.dtype)[6:], "scalar" if s.numel() == 1 else "per_sample")] += 1
+        return quantize(x, s)
+
+    tq.int8_conv_packed, tq.quantize_pack = conv_counted, quantize_counted
     try:
         fn()
         torch.cuda.synchronize()
     finally:
-        tq.int8_conv = conv
-    return hist
+        tq.int8_conv_packed, tq.quantize_pack = conv, quantize
+    return convs, quants
 
 
 def int8_library(torch, xq, wq, sx, sw, stride, padding_hw, dil, out_dtype):
@@ -1265,13 +1274,13 @@ def int8_library(torch, xq, wq, sx, sw, stride, padding_hw, dil, out_dtype):
 def int8_case(torch, g, cls, tag, launches=None, iters=10):
     """One int8_conv class on random int8 operands of its shape: the kernel
     against its plain version on the card (max abs error 0), through its
-    wrapper and its C entry point alone (operands packed beforehand), the
+    wrapper (`int8_conv_packed` on packed operands, as the forward calls it)
+    and its C entry point alone, the
     plain version, the library yardstick (im2col + `_int_mm`, also held to
     the plain version) and the bf16 cuDNN conv of the same geometry; the
     bound: useful operations (2 x C x O x the taps that land on real input,
     summed over the outputs) over 1979 TOP/s, or bytes (int8 input and
     weight, the output, the scales) over 3.35 TB/s, the larger."""
-    from pasta_gan_tpu_torch.ops import cuda_kernels as ck
     from pasta_gan_tpu_torch.ops import quant as tq
 
     F = torch.nn.functional
@@ -1283,16 +1292,19 @@ def int8_case(torch, g, cls, tag, launches=None, iters=10):
     sx = torch.rand((N, 1, 1, 1) if scale == "per_sample" else (), generator=g, device="cuda") * 0.05 + 1e-3
     sw = torch.rand(O, generator=g, device="cuda") * 0.01 + 1e-4
     args = (xq, wq, sx, sw, stride, pads, dil, out_dtype)
-    run = lambda: tq.int8_conv(*args)  # noqa: E731
+    xa = tq.QuantizedActivation(torch.nn.functional.pad(xq.permute(0, 2, 3, 1), (0, -C % 16)).contiguous(), sx, C)
+    pw = tq.pack_int8_weight(wq, sw, stride, pads, dil)
+    run = lambda: tq.int8_conv_packed(xa, pw, out_dtype)  # noqa: E731
     plain = lambda: tq.int8_conv_reference(*args)  # noqa: E731
     y, yp = run(), plain()
     torch.cuda.synchronize()
     assert y.shape == yp.shape and y.dtype == out_dtype, (cls, y.shape, yp.shape)
     err = float((y.float() - yp.float()).abs().max())
     assert err == 0, f"int8_conv {cls} differs from its plain version: max abs error {err}"
+    assert torch.equal(tq.int8_conv(*args), y), f"int8_conv {cls} on NCHW operands differs from the packed path"
     yl = int8_library(torch, *args)
     lib_err = None if yl is None else float((yl.float() - yp.float()).abs().max())
-    # the C entry point alone, its operands laid out beforehand, into a preallocated output
+    # the C entry point alone into a preallocated output
     ops = tq.kernel_operands(xq, wq, stride, pads, dil)
     sxf = sx.float().reshape(-1).contiguous()
     ye = torch.empty_like(y)
@@ -1302,8 +1314,8 @@ def int8_case(torch, g, cls, tag, launches=None, iters=10):
     assert torch.equal(ye, y), f"int8_conv {cls} through its C entry point differs from its wrapper"
     entry_ms, entry_median = cuda_time_ms(torch, entry, iters=iters)
     ms, ms_median = cuda_time_ms(torch, run, iters=iters)
-    plain_ms = cuda_time_ms(torch, plain, iters=2, warmup=1)[0]
-    lib = cuda_time_ms(torch, lambda: int8_library(torch, *args), iters=iters)[0] if yl is not None else None
+    plain_ms = cuda_time_ms(torch, plain, iters=1, warmup=0)[0]
+    lib = cuda_time_ms(torch, lambda: int8_library(torch, *args), iters=5)[0] if yl is not None else None
     xb = torch.randn(N, C, H, W, generator=g, device="cuda").to(torch.bfloat16)
     if dil > 1:  # input dilation 2 with padding 3 of a 6x6 kernel is a stride-2 transposed conv
         wb = torch.randn(C, O, kh, kh, generator=g, device="cuda").to(torch.bfloat16)
@@ -1312,7 +1324,7 @@ def int8_case(torch, g, cls, tag, launches=None, iters=10):
         wb = torch.randn(O, C, kh, kh, generator=g, device="cuda").to(torch.bfloat16)
         bf16 = lambda: F.conv2d(xb, wb, stride=stride, padding=(pt, pl))  # noqa: E731
     assert tuple(bf16().shape) == tuple(y.shape), (cls, bf16().shape, y.shape)
-    bf16_ms = cuda_time_ms(torch, bf16, iters=iters)[0]
+    bf16_ms = cuda_time_ms(torch, bf16, iters=5)[0]
     ones = torch.ones(N, 1, H, W, dtype=torch.int8, device="cuda")
     taps = float(tq.int8_conv_reference(ones, torch.ones(1, 1, kh, kh, dtype=torch.int8, device="cuda"),
                                         torch.ones((), device="cuda"), torch.ones(1, device="cuda"), stride, pads,
@@ -1333,27 +1345,69 @@ def int8_case(torch, g, cls, tag, launches=None, iters=10):
     return res
 
 
+def quantize_case(torch, g, cls, tag, launches=None, iters=10):
+    """One quantize_pack class on a random activation of its shape (3 N(0, 1),
+    a per-sample or a scalar scale): the kernel against its plain version on
+    the card (max abs error 0), through its wrapper and its C entry point
+    alone, the plain version; the bound: bytes (the activation read once, the
+    packed int8 written once) over 3.35 TB/s.  No single library call packs
+    and quantizes, so no library time."""
+    from pasta_gan_tpu_torch.ops import quant as tq
+
+    N, C, H, W, dt, scale = cls
+    x = (torch.randn(N, C, H, W, generator=g, device="cuda") * 3).to(getattr(torch, dt))
+    s = tq.per_sample_scale(x) if scale == "per_sample" else torch.tensor(0.0123, device="cuda")
+    run = lambda: tq.quantize_pack(x, s)  # noqa: E731
+    plain = lambda: tq.quantize_pack_reference(x, s)  # noqa: E731
+    q, qp = run(), plain()
+    torch.cuda.synchronize()
+    assert q.shape == qp.shape and q.dtype == torch.int8, (cls, q.shape, qp.shape)
+    err = float((q.int() - qp.int()).abs().max())
+    assert err == 0, f"quantize_pack {cls} differs from its plain version: max abs error {err}"
+    qe, sf = torch.empty_like(q), s.float().reshape(-1).contiguous()
+    entry = lambda: tq.launch_quantize_pack(x, sf, qe)  # noqa: E731
+    entry()
+    torch.cuda.synchronize()
+    assert torch.equal(qe, q), f"quantize_pack {cls} through its C entry point differs from its wrapper"
+    entry_ms, entry_median = cuda_time_ms(torch, entry, iters=iters)
+    ms, ms_median = cuda_time_ms(torch, run, iters=iters)
+    plain_ms = cuda_time_ms(torch, plain, iters=1, warmup=0)[0]
+    nbytes_ = nbytes(x, q) + 4 * s.numel()
+    res = dict(err=err, entry_ms=entry_ms, entry_median=entry_median, ms=ms, ms_median=ms_median, plain_ms=plain_ms,
+               library_ms=None, bytes=nbytes_, bound_ms=nbytes_ / PEAK_BYTES_PER_S * 1e3, bound_by="bytes")
+    n = "" if launches is None else f"{launches} per forward, "
+    print(f"kernel quantize_pack([{N},{C},{H},{W}] {dt} -> {list(q.shape)} int8, {scale} scale): {n}max_abs_err="
+          f"{err:.3g} entry_ms={entry_ms:.4f} (median {entry_median:.4f}) wrapper_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={res['bound_ms']:.4f} (bytes; {nbytes_ / entry_ms / 1e6:.0f} GB/s) library_ms=null [{tag}]",
+          flush=True)
+    return res
+
+
 def int8_kernel_classes(torch, label, gen, w_avg, batch, tag):
-    """Count the int8_conv launches of one forward of `gen` (its quant mode
-    set) by class, hold every class to its plain version and time it
-    (`int8_case`); returns {class: (launches, result)}."""
+    """Count the int8_conv and quantize_pack launches of one forward of `gen`
+    (its quant mode set) by class, hold every class to its plain version and
+    time it (`int8_case`, `quantize_case`); returns ({class: (launches,
+    result)} of int8_conv, the same of quantize_pack)."""
     from pasta_gan_tpu_torch.cli import test as cli
 
     with torch.no_grad():
-        classes = int8_classes(torch, lambda: cli.tryon_forward(gen, w_avg, batch))
-    print(f"{label}: {sum(classes.values())} int8_conv launches in {len(classes)} classes [{tag}]", flush=True)
+        convs, quants = int8_classes(torch, lambda: cli.tryon_forward(gen, w_avg, batch))
+    print(f"{label}: {sum(convs.values())} int8_conv launches in {len(convs)} classes, {sum(quants.values())} "
+          f"quantize_pack launches in {len(quants)} classes [{tag}]", flush=True)
     g = torch.Generator(device="cuda").manual_seed(0)
-    out = {}
-    for cls, n in sorted(classes.items(), key=lambda kv: str(kv[0])):
-        out[cls] = (n, int8_case(torch, g, cls, tag, launches=n))
-        torch.cuda.empty_cache()
-    total = sum(n * r["entry_ms"] for n, r in out.values())
-    bound = sum(n * r["bound_ms"] for n, r in out.values())
-    bf16 = sum(n * r["bf16_ms"] for n, r in out.values())
-    lib = sum(n * r["library_ms"] for n, r in out.values() if r["library_ms"] is not None)
-    print(f"{label}: int8_conv {total:.3f} ms a forward through the C entry point (bound {bound:.3f} ms; the bf16 "
-          f"cuDNN convs of the same geometries {bf16:.3f} ms; im2col + _int_mm {lib:.3f} ms where it applies) "
-          f"[{tag}]", flush=True)
+    out = ({}, {})
+    for table, classes, case in ((out[0], convs, int8_case), (out[1], quants, quantize_case)):
+        for cls, n in sorted(classes.items(), key=lambda kv: str(kv[0])):
+            table[cls] = (n, case(torch, g, cls, tag, launches=n))
+            torch.cuda.empty_cache()
+    conv = {k: sum(n * r[k] for n, r in out[0].values()) for k in ("entry_ms", "ms", "bound_ms", "bf16_ms")}
+    lib = sum(n * r["library_ms"] for n, r in out[0].values() if r["library_ms"] is not None)
+    quant = {k: sum(n * r[k] for n, r in out[1].values()) for k in ("entry_ms", "ms", "bound_ms", "plain_ms")}
+    print(f"{label}: int8_conv {conv['entry_ms']:.3f} ms a forward through the C entry point, {conv['ms']:.3f} through "
+          f"its wrapper (bound {conv['bound_ms']:.3f} ms; the bf16 cuDNN convs of the same geometries "
+          f"{conv['bf16_ms']:.3f} ms; im2col + _int_mm {lib:.3f} ms where it applies); quantize_pack "
+          f"{quant['entry_ms']:.3f} ms through the C entry point, {quant['ms']:.3f} through its wrapper (bound "
+          f"{quant['bound_ms']:.3f} ms, plain {quant['plain_ms']:.3f} ms) [{tag}]", flush=True)
     return out
 
 
@@ -1383,18 +1437,19 @@ def int8_serving_phase(torch, wk, ck, tag, tmp):
     int8_static, and cli.test_512 --quant int8_static (fullbody, the
     fixture's 8 pairs), each launching exactly its path's kernels; the
     int8_conv classes of one batch-16 Full int8_static forward and one
-    batch-8 Generator512 forward (bf16), each held to its plain version at
-    max abs error 0 and timed beside its bound, the library yardstick and the
-    bf16 cuDNN conv; the card against the CPU (int8_static, full width, batch
-    2, fp32, the same calibrated scales); int8 and int8_static against the
+    batch-8 Generator512 forward (bf16), and their quantize_pack classes,
+    each held to its plain version at max abs error 0 and timed beside its
+    bound (int8_conv also beside the library yardstick and the bf16 cuDNN
+    conv); int8 and int8_static against the
     fp32 forward on the timed batch; end-to-end timing and profiles (Full at
     batch 16 and 1 in both modes, 512 int8_static at batch 8 and 1, bf16)
-    and peak memory.  Returns (the serving runs' launch counts by path, the
-    kernels line's int8_conv result)."""
+    and peak memory.  (Its card-vs-CPU check, `int8_card_vs_cpu`, runs in
+    the `--card-vs-cpu` process.)  Returns (the serving runs' launch counts
+    by path, the kernels line's int8_conv and quantize_pack results by
+    name)."""
     from pasta_gan_tpu_torch.cli import test as cli
     from pasta_gan_tpu_torch.cli import test_512 as cli512
     from pasta_gan_tpu_torch.data import dataset as tds
-    from pasta_gan_tpu_torch.models import GeneratorFull
 
     snap, snap_v18, snap_512 = (os.path.join(tmp, f"snapshot{s}.pt") for s in ("", "_v18", "_512"))
     launches = {}
@@ -1415,11 +1470,13 @@ def int8_serving_phase(torch, wk, ck, tag, tmp):
     gen.set_dtype(torch.bfloat16)
     b16 = {k: v.to(torch.bfloat16) for k, v in b32.items()}
     cli.calibrate_int8_static(gen, w_avg, [b16])
-    full_classes = int8_kernel_classes(torch, "GeneratorFull int8_static forward (batch 16, bf16)", gen, w_avg, b16,
-                                       tag)
-    main_cls = max(full_classes, key=lambda c: full_classes[c][0] * full_classes[c][1]["entry_ms"])
-    result = full_classes[main_cls][1]
-    print(f"int8_conv's main class (the most time in the Full forward): {main_cls} [{tag}]", flush=True)
+    results = {}
+    for name, classes in zip(("int8_conv", "quantize_pack"),
+                             int8_kernel_classes(torch, "GeneratorFull int8_static forward (batch 16, bf16)", gen,
+                                                 w_avg, b16, tag)):
+        main_cls = max(classes, key=lambda c: classes[c][0] * classes[c][1]["entry_ms"])
+        results[name] = classes[main_cls][1]
+        print(f"{name}'s main class (the most time in the Full forward): {main_cls} [{tag}]", flush=True)
 
     # ---- int8 and int8_static against the fp32 forward on the timed batch (bf16 compute)
     rels = {}
@@ -1455,13 +1512,24 @@ def int8_serving_phase(torch, wk, ck, tag, tmp):
     int8_kernel_classes(torch, "Generator512 int8_static forward (batch 8, bf16)", gen, w_avg, b8, tag)
     p1, g1 = (on_card(torch, d) for d in fixture_512_batch(tds, 1))
     torch.cuda.reset_peak_memory_stats()
-    time_tryon(torch, cli, gen, w_avg, route512, [(8, p8, g8, 10), (1, p1, g1, 20)], "512 fullbody int8_static",
+    time_tryon(torch, cli, gen, w_avg, route512, [(8, p8, g8, 10), (1, p1, g1, 10)], "512 fullbody int8_static",
                tag, res=512)
     print(f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated (512 int8_static) [{tag}]", flush=True)
     del gen, b8
     torch.cuda.empty_cache()
 
-    # ---- the card against the CPU: int8_static, full width, batch 2, fp32, the card's calibrated scales
+    return launches, results
+
+
+def int8_card_vs_cpu(torch, tag, snap):
+    """The int8_static forward of the Full snapshot `snap` on the card against
+    the port's CPU path (full width, batch 2, fp32, the card's calibrated
+    scales), within INT8_SENSITIVITY_FACTOR times the forward's own move under
+    an INT8_PERTURB relative input change.  Bound by the CPU forward: run in
+    the `--card-vs-cpu` process."""
+    from pasta_gan_tpu_torch.cli import test as cli
+    from pasta_gan_tpu_torch.data import dataset as tds
+
     ds = tds.SyntheticUvitonDataset(num_samples=4, seed=3)
     person, garment = tds.collate([ds[0], ds[1]]), tds.collate([ds[2], ds[3]])
     b_cpu = tds.prepare_tryon_batch(person, garment, device="cpu")
@@ -1491,10 +1559,9 @@ def int8_serving_phase(torch, wk, ck, tag, tmp):
     assert rel <= INT8_SENSITIVITY_FACTOR * sens, f"int8_static on the card differs from the CPU: {rel} vs {sens}"
     del gen_gpu, gen_cpu
     torch.cuda.empty_cache()
-    return launches, result
 
 
-def device_profile(torch, fn, iters=5, top=8):
+def device_profile(torch, fn, iters=2, top=8):
     """Device ms and device operations per run of fn() under torch.profiler
     (one stream, so operations do not overlap), and the `top` operations by
     time as (name, ms per run, count per run).  Device ms is None when the
@@ -1691,7 +1758,7 @@ def pipe_times(torch, pipe, tag):
             if backward:
                 torch.autograd.grad(y, x, cot)
 
-        device_ms, n_ops, top = device_profile(torch, run, iters=3, top=4)
+        device_ms, n_ops, top = device_profile(torch, run, top=4)
         wall_ms = cuda_time_ms(torch, run, iters=5, warmup=1)[1]
         res[label] = device_ms
         print(f"ADA pipe {label} over {n} images: device {device_ms:.2f} ms, {n_ops:.0f} device ops, "
@@ -1757,8 +1824,8 @@ def train_reg_phase(torch, ck, tag, tmp):
     VGG19), `--aug noaug`, REG_STEPS steps at batch 32, no grids.  Greg's
     stats must be finite and pl_mean must move (run_cli_train checks the
     rest).  Prints Gmain+Dmain with the contextual loss, Greg and R1 (each
-    run again, timed with a synchronise), the contextual loss's device ms
-    (one Gmain under torch.profiler with and without it), its relu1_2
+    run again, timed with a synchronise), the contextual loss's ms (one
+    Gmain with and one without it, CUDA events), its relu1_2
     affinity term at batch 4 against its matmul bound, and one Greg step's
     launches, peak memory and FIR classes, each class held to its plain
     version (Greg's double backward gives up2 and down2 pads and extends that
@@ -1818,23 +1885,17 @@ def train_reg_phase(torch, ck, tag, tmp):
     classes = fir_classes_equal(torch, lambda: trainer.g_pl_step(state, batch), "training_reg Greg", tag)
     assert {k[:2] for k in classes} >= {("up2", 0), ("up2", 1), ("down2", 0), ("down2", 1)}, sorted(classes)
 
-    # the contextual loss's share of one Gmain: the same Gmain with and without it
+    # the contextual loss's share of one Gmain: the same Gmain with and without it, CUDA events (under
+    # torch.profiler the 123k device operations of the one with it took longer to trace than to run)
     g_params = list(state.G.parameters())
     plain = copy.copy(trainer)
     plain.config = replace_nested(cfg, **{"loss.contextual_weight": 0.0})
-    gmain = {}
-    for label, t in (("with", trainer), ("without", plain)):
-        gmain[label] = device_profile(torch, lambda: t._grads_with_accum(
-            lambda b: t.g_loss_fn(state.G, state.D, b), g_params, batch), iters=1, top=8)
-    (dev_with, ops_with, top), (dev_without, ops_without, _) = gmain["with"], gmain["without"]
-    ctx_ms = None if dev_with is None or dev_without is None else dev_with - dev_without
-    print(f"training_reg one Gmain (batch {TRAIN_BATCH}) under torch.profiler: device "
-          f"{'not measured' if dev_with is None else f'{dev_with:.1f} ms'} with the contextual loss, "
-          f"{'not measured' if dev_without is None else f'{dev_without:.1f} ms'} without; the contextual loss "
-          f"{'not measured' if ctx_ms is None else f'{ctx_ms:.1f} device ms'}; {ops_with:.0f} against "
-          f"{ops_without:.0f} device ops [{tag}]", flush=True)
-    for op, op_ms, n in top:
-        print(f"    {op_ms:9.3f} ms {n:7.1f}x  {op[:100]}", flush=True)
+    gmain = {label: cuda_time_ms(torch, lambda t=t: t._grads_with_accum(
+        lambda b: t.g_loss_fn(state.G, state.D, b), g_params, batch), iters=1, warmup=warmup)[0]
+        for label, t, warmup in (("with", trainer, 0), ("without", plain, 1))}
+    print(f"training_reg one Gmain (batch {TRAIN_BATCH}), CUDA events: {gmain['with']:.1f} ms with the contextual "
+          f"loss, {gmain['without']:.1f} ms without; the contextual loss {gmain['with'] - gmain['without']:.1f} ms "
+          f"[{tag}]", flush=True)
 
     # the relu1_2 affinity term alone, forward and backward, at batch 4 (its cost is linear in the batch)
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1870,6 +1931,62 @@ def contextual_card_vs_cpu(torch, tag):
     print(f"contextual_loss card vs CPU ([1, 256, 256, 64] fp32): card {v_gpu:.8g}, CPU {v_cpu:.8g} (CPU {cpu_s:.1f} "
           f"s), relative {rel:.3g} (limit {LOSS_RTOL}) [{tag}]", flush=True)
     assert math.isfinite(v_gpu) and rel <= LOSS_RTOL, f"contextual_loss on the card differs: {v_gpu} vs {v_cpu}"
+
+
+CARD_VS_CPU_TIMEOUT_S = 900
+
+
+def card_vs_cpu_main(snap):
+    """`chip_smoke.py --card-vs-cpu SNAPSHOT`: the thin fp32 training steps
+    (noaug, ADA at debug percentile and from random draws, style mixing with
+    the contextual loss and Greg), the relu1_2-sized contextual loss and the
+    int8_static forward of the Full snapshot SNAPSHOT, each on the card
+    against the port's CPU path.  These are bound by the CPU, so the smoke
+    runs this process beside its training phases (`start_card_vs_cpu`); its
+    launches count on no path."""
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from pasta_gan_tpu_torch.ops import cuda_kernels as ck
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ck.build_kernels()  # built by the parent: loads them
+    tag = card_tag()
+    for label, kw in (("noaug", {}), ("ADA debug percentile", {"ada": "debug"}),
+                      ("ADA random draws", {"ada": "random"}), ("style mixing and the contextual loss", {"reg": True})):
+        t0 = time.perf_counter()
+        train_card_vs_cpu(torch, tag, label, **kw)
+        print(f"phase train_card_vs_cpu {label}: {time.perf_counter() - t0:.1f} s (beside the training phases) "
+              f"[{tag}]", flush=True)
+    for fn, args in ((contextual_card_vs_cpu, ()), (int8_card_vs_cpu, (snap,))):
+        t0 = time.perf_counter()
+        fn(torch, tag, *args)
+        print(f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s (beside the training phases) [{tag}]",
+              flush=True)
+    return 0
+
+
+def start_card_vs_cpu(snap, log):
+    """Start `chip_smoke.py --card-vs-cpu snap` in a process group of its own, output to `log`."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    f = open(log, "w")
+    return subprocess.Popen([sys.executable, os.path.join(here, "chip_smoke.py"), "--card-vs-cpu", snap], cwd=here,
+                            stdout=f, stderr=subprocess.STDOUT, start_new_session=True), f
+
+
+def wait_card_vs_cpu(proc, f, log):
+    """Wait for `start_card_vs_cpu`'s process (killed if it outlives CARD_VS_CPU_TIMEOUT_S), print its
+    output and fail if it failed."""
+    try:
+        rc = proc.wait(timeout=CARD_VS_CPU_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        kill_ranks(proc)
+        rc = "killed at its time limit"
+    f.close()
+    with open(log) as g:
+        print(g.read(), end="", flush=True)
+    assert rc == 0, f"the card vs CPU comparisons exited {rc}"
 
 
 def array_digest(a):
@@ -2456,19 +2573,6 @@ def metrics_phase(torch, ck, tag, tmp):
               flush=True)
         for op, op_ms, cnt in top:
             print(f"    {op_ms:9.3f} ms {cnt:7.1f}x  {op[:100]}", flush=True)
-        if root is None:
-            # cuDNN's heuristics pick FFT convolutions for this fp32 forward; what would autotuning pick?
-            torch.backends.cudnn.benchmark = True
-            try:
-                for _ in range(2):  # the first pass tunes
-                    t0 = time.perf_counter()
-                    sum(int(batch.shape[0]) for batch in src())
-                    torch.cuda.synchronize()
-                tuned = time.perf_counter() - t0
-            finally:
-                torch.backends.cudnn.benchmark = False
-            print(f"metrics network source ({label}) with cudnn.benchmark on (TF32 still off): {tuned * 1e3:.1f} ms a "
-                  f"pass, {n / tuned:.1f} images/s (measured only; the CLI keeps cuDNN's defaults) [{tag}]", flush=True)
 
     # ---- host formulas on this machine's CPU
     rng = np.random.default_rng(0)
@@ -2769,7 +2873,7 @@ def timed_forward(torch, fn, label, tag, iters=10):
     """Median host ms of fn() ended by a synchronise, then its device ms and
     top operations under torch.profiler; printed."""
     ms, out = host_ms(torch, fn, iters)
-    device_ms, n_ops, top = device_profile(torch, fn, iters=3)
+    device_ms, n_ops, top = device_profile(torch, fn)
     dev = "not measured (no device time in the trace)" if device_ms is None else f"{device_ms:.3f} ms"
     busy = "not measured" if device_ms is None else f"{device_ms / ms:.3f}"
     print(f"{label}: host {ms:.2f} ms (median of {iters}), device {dev}, busy {busy}, {n_ops:.0f} device ops "
@@ -3678,37 +3782,47 @@ def main():
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}", flush=True)
 
-    results = kernel_phase(torch, wk, tag)
-    results.update(v18_kernel_phase(torch, wk, tag))
-    kernel_512_phase(torch, wk, tag)
-    results.update(fir_kernel_phase(torch, tag))
+    def timed(fn, *args, **kw):
+        """fn(*args, **kw), with its wall seconds printed as `phase NAME: S s`."""
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        print(f"phase {fn.__name__}: {time.perf_counter() - t0:.1f} s [{tag}]", flush=True)
+        return out
+
+    results = timed(kernel_phase, torch, wk, tag)
+    results.update(timed(v18_kernel_phase, torch, wk, tag))
+    timed(kernel_512_phase, torch, wk, tag)
+    results.update(timed(fir_kernel_phase, torch, tag))
     with tempfile.TemporaryDirectory() as tmp:
-        launches = {"serving_full": slice_phase(torch, wk, ck, tag, tmp)}
-        launches.update(v18_phase(torch, wk, ck, tag, tmp))
-        launches.update(serving_512_phase(torch, wk, ck, tag, tmp))
-        int8_launches, results["int8_conv"] = int8_serving_phase(torch, wk, ck, tag, tmp)
+        launches = {"serving_full": timed(slice_phase, torch, wk, ck, tag, tmp)}
+        launches.update(timed(v18_phase, torch, wk, ck, tag, tmp))
+        launches.update(timed(serving_512_phase, torch, wk, ck, tag, tmp))
+        int8_launches, int8_results = timed(int8_serving_phase, torch, wk, ck, tag, tmp)
         launches.update(int8_launches)
-        launches["training"] = train_phase(torch, ck, tag, tmp)
-        launches["training_ada"] = train_ada_phase(torch, ck, tag, tmp)
-        launches["training_reg"] = train_reg_phase(torch, ck, tag, tmp)
-        launches.update(real_data_phase(torch, ck, tag, tmp))
-        launches.update(metrics_phase(torch, ck, tag, tmp))
-        launches.update(metrics_conditional_phase(torch, ck, tag, tmp))
-        launches["training_transfer"], pkl, expected = transfer_phase(torch, ck, tag, tmp)
-        launches.update(stock_phase(torch, ck, tag, pkl, expected))
+        results.update(int8_results)
+        cvc_log = os.path.join(tmp, "card_vs_cpu.log")
+        cvc = start_card_vs_cpu(os.path.join(tmp, "snapshot.pt"), cvc_log)
+        try:
+            launches["training"] = timed(train_phase, torch, ck, tag, tmp)
+            launches["training_ada"] = timed(train_ada_phase, torch, ck, tag, tmp)
+            launches["training_reg"] = timed(train_reg_phase, torch, ck, tag, tmp)
+        except BaseException:
+            kill_ranks(cvc[0])
+            raise
+        timed(wait_card_vs_cpu, *cvc, cvc_log)
+        launches.update(timed(real_data_phase, torch, ck, tag, tmp))
+        launches.update(timed(metrics_phase, torch, ck, tag, tmp))
+        launches.update(timed(metrics_conditional_phase, torch, ck, tag, tmp))
+        launches["training_transfer"], pkl, expected = timed(transfer_phase, torch, ck, tag, tmp)
+        launches.update(timed(stock_phase, torch, ck, tag, pkl, expected))
         del expected
-        launches.update(plain_512_phase(torch, ck, tag))
-        launches.update(zoo_phase(torch, ck, tag))
-        launches.update(v1_phase(torch, ck, tag))
-        launches.update(patch_d_phase(torch, ck, tag))
-        launches.update(host_routing_phase(torch, ck, tag))
-        tools_phase(torch, tag, tmp)
-        launches.update(dp_phase(torch, ck, tag, tmp))
-    train_card_vs_cpu(torch, tag)
-    train_card_vs_cpu(torch, tag, "ADA debug percentile", ada="debug")
-    train_card_vs_cpu(torch, tag, "ADA random draws", ada="random")
-    train_card_vs_cpu(torch, tag, "style mixing and the contextual loss", reg=True)
-    contextual_card_vs_cpu(torch, tag)
+        launches.update(timed(plain_512_phase, torch, ck, tag))
+        launches.update(timed(zoo_phase, torch, ck, tag))
+        launches.update(timed(v1_phase, torch, ck, tag))
+        launches.update(timed(patch_d_phase, torch, ck, tag))
+        launches.update(timed(host_routing_phase, torch, ck, tag))
+        timed(tools_phase, torch, tag, tmp)
+        launches.update(timed(dp_phase, torch, ck, tag, tmp))
 
     kernels = [
         {"name": name, "route": "cuda", "source": f"pasta_gan_tpu_torch/csrc/{ck.KERNELS[name].source}",
@@ -3730,4 +3844,6 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(dp_rank(sys.argv[2:]) if sys.argv[1:2] == ["--dp-rank"] else main())
+    if sys.argv[1:2] == ["--dp-rank"]:
+        sys.exit(dp_rank(sys.argv[2:]))
+    sys.exit(card_vs_cpu_main(sys.argv[2]) if sys.argv[1:2] == ["--card-vs-cpu"] else main())

@@ -15,7 +15,8 @@ int8: at stride 1 as it is, and a down=2 conv as the float FIR pre-pass
 (padding k//2 + 1) followed by an int8 stride-2 conv of the filtered tensor,
 quantized at this layer's site.  Given a `QuantizedActivation` (a quantize
 shared with other convs) it runs int8 on it.  A stride-1 `ResBlock`
-quantizes its input once, at its own site, for its skip and conv0.
+quantizes its input once, at its own site, for its skip and conv0.  The
+layer keeps its packed int8 weight in an `Int8WeightCache` (`int8_weight`).
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from torch import nn
 
 from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.conv2d_resample import conv2d_resample
-from ..ops.quant import ActScale, QuantizedActivation, QuantMode, int8_conv2d, is_int8
+from ..ops.quant import (ActScale, Int8WeightCache, QuantizedActivation, QuantMode, int8_conv2d, is_int8,
+                         pack_weight)
 from ..ops.upfirdn2d import setup_filter, upfirdn2d
 
 
@@ -102,6 +104,7 @@ class Conv2dLayer(Layer):
                  up=1, down=1, resample_filter=(1, 3, 3, 1), conv_clamp=None, quant_site=False):
         super().__init__()
         self.act_scale = ActScale() if quant_site else None
+        self.int8_weight = Int8WeightCache()
         self.in_channels, self.out_channels, self.kernel_size = in_channels, out_channels, kernel_size
         self.activation, self.up, self.down, self.conv_clamp = activation, up, down, conv_clamp
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size, kernel_size))
@@ -138,16 +141,19 @@ class Conv2dLayer(Layer):
 
     def _int8(self, x, q):
         """The conv of int8 serving: the fp32 gain-scaled weight quantized per
-        output channel, the output in the compute dtype."""
+        output channel (built once, `int8_weight`), the output in the compute
+        dtype."""
         k = self.kernel_size
-        w = self.weight * (1.0 / math.sqrt(self.in_channels * k * k))
         dt = self.compute_dtype
+        stride, p = (1, k // 2) if self.down == 1 else (2, 0)
+        w = self.int8_weight.get(self.weight, (q, stride, p), lambda: pack_weight(
+            self.weight * (1.0 / math.sqrt(self.in_channels * k * k)), ((p, p), (p, p)), stride))
         if self.down == 1:
             xq = x if isinstance(x, QuantizedActivation) else self.act_scale.quantize(x, q)
-            return int8_conv2d(xq, w, padding=(k // 2,) * 4, out_dtype=dt)
+            return int8_conv2d(xq, w, padding=(p,) * 4, out_dtype=dt)
         fw = self.resample_filter.shape[-1]
-        p = (k // 2 + (fw - 1) // 2, k // 2 + (fw - 2) // 2) * 2
-        xf = upfirdn2d(x.to(dt), self.resample_filter, padding=p)
+        pf = (k // 2 + (fw - 1) // 2, k // 2 + (fw - 2) // 2) * 2
+        xf = upfirdn2d(x.to(dt), self.resample_filter, padding=pf)
         return int8_conv2d(self.act_scale.quantize(xf, q), w, stride=2, out_dtype=dt)
 
 

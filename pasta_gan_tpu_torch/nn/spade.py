@@ -12,7 +12,8 @@ runs int8 at stride 1, quantizing at its own site unless it is handed a
 output once for gamma and beta; a `SpadeResBlock` quantizes the denorm
 features once for its three norm blocks' `conv_mlp`, unless they arrive
 quantized (`feat_site=False`: the synthesis network quantizes them once for
-all three blocks).
+all three blocks).  Each layer keeps its packed int8 weight in an
+`Int8WeightCache` (`int8_weight`).
 """
 
 from __future__ import annotations
@@ -25,7 +26,8 @@ from torch import nn
 
 from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.conv2d_resample import conv2d_resample
-from ..ops.quant import ActScale, QuantizedActivation, QuantMode, int8_conv2d, is_int8
+from ..ops.quant import (ActScale, Int8WeightCache, QuantizedActivation, QuantMode, int8_conv2d, is_int8,
+                         pack_weight)
 from .layers import Layer, _filter_buffer, _normal_, instance_norm_2d
 
 
@@ -34,6 +36,7 @@ class SpadeConv2dLayer(Layer):
                  up=1, down=1, resample_filter=(1, 3, 3, 1), conv_clamp=None, quant_site=True):
         super().__init__()
         self.act_scale = ActScale() if quant_site else None
+        self.int8_weight = Int8WeightCache()
         self.in_channels, self.out_channels, self.kernel_size = in_channels, out_channels, kernel_size
         self.activation, self.up, self.down, self.conv_clamp = activation, up, down, conv_clamp
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size, kernel_size))
@@ -58,11 +61,14 @@ class SpadeConv2dLayer(Layer):
             act_gain = activation_funcs[self.activation].def_gain * gain
             act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None
             x = bias_act(x, self.bias, act=self.activation, gain=act_gain, clamp=act_clamp)
-        w = self.weight * (1.0 / math.sqrt(self.in_channels * k * k))
+        gain_w = 1.0 / math.sqrt(self.in_channels * k * k)
         if q is not None and self.up == 1 and self.down == 1 and (
                 isinstance(x, QuantizedActivation) or self.act_scale is not None):
+            p = k // 2
+            w = self.int8_weight.get(self.weight, (q, p), lambda: pack_weight(self.weight * gain_w, ((p, p), (p, p))))
             xq = x if isinstance(x, QuantizedActivation) else self.act_scale.quantize(x, q)
-            return int8_conv2d(xq, w, padding=(k // 2,) * 4, out_dtype=self.compute_dtype)
+            return int8_conv2d(xq, w, padding=(p,) * 4, out_dtype=self.compute_dtype)
+        w = self.weight * gain_w
         resample = self.up > 1 or self.down > 1
         return conv2d_resample(
             x.to(self.compute_dtype),

@@ -42,7 +42,7 @@ from torch import nn
 
 from ..ops.bias_act import activation_funcs, bias_act
 from ..ops.modulated_conv2d import modulated_conv2d
-from ..ops.quant import ActScale, QuantMode, is_int8
+from ..ops.quant import ActScale, Int8WeightCache, QuantMode, is_int8
 from ..ops.upfirdn2d import upsample2d
 from .layers import Conv2dLayer, FullyConnectedLayer, Layer, ResBlock, _filter_buffer, _normal_
 from .spade import SpadeResBlock
@@ -64,6 +64,7 @@ class SynthesisLayer(Layer):
         # int8: a site where modulated_conv2d runs the conv int8 (stride 1, or the folded up-conv)
         int8_conv = up == 1 or (up == 2 and kernel_size == 3 and resolution // 2 >= 32)
         self.act_scale = ActScale() if int8_conv else None
+        self.int8_weight = Int8WeightCache()
         self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size, kernel_size))
         self.noise_strength = nn.Parameter(torch.zeros(())) if use_noise else None
         self.bias = nn.Parameter(torch.zeros(out_channels))
@@ -102,6 +103,7 @@ class SynthesisLayer(Layer):
             padding=self.kernel_size // 2, spade_styles=spade_styles,
             resample_filter=self.resample_filter if self.up > 1 else None,
             flip_weight=(self.up == 1), quant=self.quant, quant_site=self.act_scale,
+            weight_cache=self.int8_weight, weight_source=self.weight,
         )
         act_gain = activation_funcs[self.activation].def_gain * gain
         act_clamp = self.conv_clamp * gain if self.conv_clamp is not None else None

@@ -9,6 +9,7 @@ Every hand-written kernel of the port is declared here, so that
 * `up2`          csrc/upfirdn2x.cu     (wrapper: ops/upfirdn_kernels.py)
 * `down2`        csrc/upfirdn2x.cu     (wrapper: ops/upfirdn_kernels.py)
 * `int8_conv`    csrc/int8_conv.cu     (wrapper: ops/quant.py)
+* `quantize_pack` csrc/quantize_pack.cu (wrapper: ops/quant.py)
 
 Kernels are built with nvcc into `pasta_gan_tpu_torch/build/` at first use
 (one shared library per source, plain C interface, loaded with ctypes; the
@@ -115,7 +116,11 @@ DOWN2 = CudaKernel("down2", "upfirdn2x.cu", "pasta_down2", [_P, _P, _I, _L, _I, 
 # (x, w, taps, ntaps, sx, sx_stride, sw, out, bf16, N, C, H, W, O, Ho, Wo, stride, dilation, Kw, Tmax, stream)
 INT8_CONV = CudaKernel("int8_conv", "int8_conv.cu", "pasta_int8_conv",
                        [_P, _P, _P, _P, _P, _I, _P, _P, _I] + [_I] * 11 + [_P])
-KERNELS: Dict[str, CudaKernel] = {k.name: k for k in (NORM_WARP, COMPOSITE, DENORM_WARP, UP2, DOWN2, INT8_CONV)}
+# (x, s, s_stride, q, bf16, N, C, HW, Cp, stream)
+QUANTIZE_PACK = CudaKernel("quantize_pack", "quantize_pack.cu", "pasta_quantize_pack",
+                           [_P, _P, _I, _P, _I, _I, _I, _I, _I, _P])
+KERNELS: Dict[str, CudaKernel] = {k.name: k for k in (NORM_WARP, COMPOSITE, DENORM_WARP, UP2, DOWN2, INT8_CONV,
+                                                      QUANTIZE_PACK)}
 
 
 def reset_launch_counts() -> None:

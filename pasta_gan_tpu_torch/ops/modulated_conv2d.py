@@ -16,6 +16,9 @@ input of at least 32 rows folds its [1,3,3,1] FIR into a 6x6 kernel
 (`fold_up_weights`) run int8 with input dilation 2 and padding 3, as the JAX
 package does.  Every other case (the low-resolution up-convs) stays float,
 and so does the float path's up-conv, which keeps its upfirdn + conv route.
+The int8 weight is packed once into `weight_cache` (an `Int8WeightCache`,
+keyed on `weight_source`, the parameter `weight` derives from), which an
+int8 caller must give.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from typing import Optional
 import torch
 
 from .conv2d_resample import conv2d_resample
-from .quant import fold_up_weights, int8_conv2d, is_int8
+from .quant import Int8WeightCache, fold_up_weights, int8_conv2d, is_int8, pack_weight
 
 _HALF = (torch.float16, torch.bfloat16)
 
@@ -45,13 +48,16 @@ def modulated_conv2d(
     prenorm_for_half: bool = True,
     quant: Optional[str] = None,  # int8 serving mode (ops/quant.py)
     quant_site=None,  # the ActScale that quantizes the modulated tensor
+    weight_cache: Optional[Int8WeightCache] = None,  # the int8 weight, built once (required with quant)
+    weight_source: Optional[torch.Tensor] = None,  # the parameter `weight` derives from (weight_cache's key)
 ) -> torch.Tensor:
     N = x.shape[0]
     out_channels, in_channels, kh, kw = weight.shape
     if x.shape[1] != in_channels or tuple(styles.shape) != (N, in_channels):
         raise ValueError(f"shape mismatch: x {tuple(x.shape)}, w {tuple(weight.shape)}, s {tuple(styles.shape)}")
 
-    if prenorm_for_half and x.dtype in _HALF and demodulate:
+    prenorm = prenorm_for_half and x.dtype in _HALF and demodulate
+    if prenorm:
         wmax = weight.abs().amax(dim=(1, 2, 3), keepdim=True)  # per-O
         weight = weight * (1.0 / (in_channels * kh * kw) ** 0.5 / (wmax + 1e-8))
         smax = styles.abs().amax(dim=1, keepdim=True)
@@ -77,12 +83,18 @@ def modulated_conv2d(
         and kh == 3 and kw == 3 and padding == 1 and tuple(resample_filter.shape) == (4, 4)
         and x.shape[2] >= 32  # below, the 6x6 fold outweighs the upfirdn intermediate it replaces
     )
-    if q is not None and fold:
-        G = fold_up_weights(weight, resample_filter, gain=4.0)
-        x = int8_conv2d(quant_site.quantize(x, q), G, padding=(3, 3, 3, 3), lhs_dilation=2, out_dtype=x.dtype)
-    elif q is not None and up == 1 and down == 1:
-        x = int8_conv2d(quant_site.quantize(x, q), weight, padding=(padding,) * 4, flip_weight=flip_weight,
-                        out_dtype=x.dtype)
+    if q is not None and (fold or (up == 1 and down == 1)):
+        def build():
+            if fold:
+                return pack_weight(fold_up_weights(weight, resample_filter, gain=4.0), ((3, 3), (3, 3)), 1, 2)
+            return pack_weight(weight, ((padding, padding), (padding, padding)), flip_weight=flip_weight)
+
+        if weight_cache is None or weight_source is None:
+            raise ValueError("an int8 modulated conv takes its packed weight from weight_cache, keyed on weight_source")
+        f = (resample_filter.data_ptr(), resample_filter._version) if fold else None
+        w8 = weight_cache.get(weight_source, (q, weight.dtype, prenorm, fold, flip_weight, padding, f), build)
+        pads = (3,) * 4 if fold else (padding,) * 4
+        x = int8_conv2d(quant_site.quantize(x, q), w8, padding=pads, lhs_dilation=2 if fold else 1, out_dtype=x.dtype)
     else:
         x = conv2d_resample(
             x, weight, f=resample_filter, up=up, down=down, padding=padding, flip_weight=flip_weight

@@ -1,7 +1,11 @@
 """The port's CUDA kernels against their plain PyTorch versions: the three
 routing kernels (norm_warp at 4 and 8 channels, composite, denorm_warp with
-both borders), the two FIR resampling kernels (up2, down2) and the int8
-convolution of int8 serving (int8_conv, bit for bit); norm_warp and
+both borders), the two FIR resampling kernels (up2, down2), the int8
+convolution of int8 serving (int8_conv, bit for bit: every tile width, the
+persistent walk over more tiles than SMs, the input-dilation phases, the
+16-channel activations, the activation tile gathered and loaded by TMA) and its quantize-and-pack pass (quantize_pack, bit
+for bit: fp32 and bf16, ties, clamping, ragged and unaligned planes, a
+channel count that is not a multiple of 16); norm_warp and
 composite also on the routing operands of the real fixture pairs
 (tests/fixtures/upt_mini, decoded by the port without PIL).
 
@@ -589,7 +593,7 @@ def test_fir_wrappers_check_cuda_inputs(cuda_device):
 
 
 def test_registry_holds_every_kernel_once():
-    assert sorted(ck.KERNELS) == ["composite", "denorm_warp", "down2", "int8_conv", "norm_warp", "up2"]
+    assert sorted(ck.KERNELS) == ["composite", "denorm_warp", "down2", "int8_conv", "norm_warp", "quantize_pack", "up2"]
     for k in ck.KERNELS.values():
         assert os.path.exists(k.source_path), k.source
 
@@ -776,6 +780,22 @@ INT8_CASES = {
     "6x6_dilation2": (2, 32, 48, 6, 12, 10, 1, (3, 3, 3, 3), 2),
     "3x3_512": (1, 512, 64, 3, 8, 8, 1, (1, 1, 1, 1), 1),
     "3x3_c40_o200": (2, 40, 200, 3, 11, 13, 1, (1, 1, 1, 1), 1),
+    # more tiles than SMs (the persistent walk), tile widths 64, 128 and 256, the folded up-conv's phases
+    "3x3_64_many_tiles": (2, 64, 64, 3, 128, 128, 1, (1, 1, 1, 1), 1),
+    "3x3_128_many_tiles": (2, 128, 128, 3, 96, 96, 1, (1, 1, 1, 1), 1),
+    "1x1_512_to_256": (2, 512, 256, 1, 24, 24, 1, (0, 0, 0, 0), 1),
+    "3x3_256_to_512_tiny": (3, 256, 512, 3, 4, 4, 1, (1, 1, 1, 1), 1),
+    "6x6_dilation2_128_to_64": (2, 128, 64, 6, 24, 20, 1, (3, 3, 3, 3), 2),
+    "3x3_stride2_odd": (2, 96, 136, 3, 65, 63, 2, (0, 0, 0, 0), 1),
+    # the activation tile by TMA (stride 1, C a multiple of 128, tiles that are boxes of the input): rows of a
+    # sample, boxes across samples with a ragged last one, a row wider than a tile, the folded up-conv's phases
+    "3x3_128_tma_rows": (2, 128, 128, 3, 64, 64, 1, (1, 1, 1, 1), 1),
+    "3x3_384_tma_samples": (3, 384, 128, 3, 8, 8, 1, (1, 1, 1, 1), 1),
+    "1x1_256_tma_wide_row": (1, 256, 128, 1, 4, 512, 1, (0, 0, 0, 0), 1),
+    "6x6_dilation2_tma": (2, 128, 64, 6, 16, 16, 1, (3, 3, 3, 3), 2),
+    # channels in 64s (64-byte K steps where the tile is a box)
+    "1x1_192_tma": (2, 192, 128, 1, 16, 16, 1, (0, 0, 0, 0), 1),
+    "3x3_320_to_256_tma": (3, 320, 256, 3, 8, 8, 1, (1, 1, 1, 1), 1),
 }
 
 
@@ -799,6 +819,74 @@ def test_int8_conv_kernel_bit_exact(cuda_device, case, out, scale):
     torch.cuda.synchronize()
     assert y.dtype == out and y.shape == yp.shape
     torch.testing.assert_close(y, yp, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", [torch.float32, torch.bfloat16])
+def test_int8_conv_packed_kernel_bit_exact(cuda_device, out):
+    """The served path: a float activation through quantize_pack and a
+    float weight through pack_weight, then int8_conv_packed, against the
+    plain version on the same int8 operands."""
+    from pasta_gan_tpu_torch.ops import quant as tq
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.randn(4, 72, 33, 35, generator=g, device=cuda_device).to(out)
+    w = torch.randn(136, 72, 3, 3, generator=g, device=cuda_device)
+    xa = tq.quantize_activation(x)
+    pw = tq.pack_weight(w, ((1, 1), (1, 1)))
+    before = ck.INT8_CONV.launches
+    y = tq.int8_conv_packed(xa, pw, out)
+    assert ck.INT8_CONV.launches == before + 1
+    yp = tq.int8_conv_reference(xa.nchw(), pw.wq, xa.scale, pw.sw, 1, ((1, 1), (1, 1)), 1, out)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, yp, rtol=0, atol=0)
+
+
+# (N, C, H, W): aligned planes, 6 and 3 channels (one 16-byte piece), a ragged plane of odd length, 576 channels,
+# a plane shorter than a block and one of 257 x 257
+QUANTIZE_CASES = {"aligned": (2, 128, 16, 16), "6ch": (2, 6, 20, 20), "3ch": (3, 3, 9, 7), "ragged": (3, 37, 13, 9),
+                  "576ch": (1, 576, 8, 8), "short": (5, 40, 3, 5), "257": (2, 64, 257, 257)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", ["per_sample", "scalar", "ties"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", sorted(QUANTIZE_CASES))
+def test_quantize_pack_kernel_bit_exact(cuda_device, case, dtype, scale):
+    """quantize_pack against its plain version (quantize_act_with_scale, then
+    NHWC and the pad) to the bit; "ties" puts x / s on k + 0.5 and past
+    +-127 (round half to even, the clamp)."""
+    from pasta_gan_tpu_torch.ops import quant as tq
+
+    N, C, H, W = QUANTIZE_CASES[case]
+    g = torch.Generator(device=cuda_device).manual_seed(len(case))
+    if scale == "ties":
+        x = (torch.randint(-300, 300, (N, C, H, W), generator=g, device=cuda_device) + 0.5).to(dtype)
+        s = torch.ones((), device=cuda_device)
+    else:
+        x = (torch.randn(N, C, H, W, generator=g, device=cuda_device) * 3).to(dtype)
+        s = tq.per_sample_scale(x) if scale == "per_sample" else torch.tensor(0.0123, device=cuda_device)
+    before = ck.QUANTIZE_PACK.launches
+    q = tq.quantize_pack(x, s)
+    assert ck.QUANTIZE_PACK.launches == before + 1
+    qp = tq.quantize_pack_reference(x, s)
+    torch.cuda.synchronize()
+    assert q.dtype == torch.int8 and q.shape == qp.shape == (N, H, W, -(-C // 16) * 16)
+    assert torch.equal(q, qp)
+
+
+@pytest.mark.cuda
+def test_quantize_pack_kernel_unaligned_input_bit_exact(cuda_device):
+    """An activation whose storage starts 2 bytes past a 16-byte boundary
+    takes the kernel's scalar loads."""
+    from pasta_gan_tpu_torch.ops import quant as tq
+
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    base = torch.randn(2 * 48 * 32 * 32 + 1, generator=g, device=cuda_device).to(torch.bfloat16)
+    x = base[1:].view(2, 48, 32, 32)
+    assert x.data_ptr() % 16 == 2
+    s = tq.per_sample_scale(x)
+    torch.testing.assert_close(tq.quantize_pack(x, s), tq.quantize_pack_reference(x, s), rtol=0, atol=0)
 
 
 def test_int8_conv_refuses_what_the_kernel_does_not_take():

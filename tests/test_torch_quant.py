@@ -2,7 +2,10 @@
 `csrc/int8_conv.cu`) against the JAX package's (`pasta_gan_tpu/ops/quant.py`).
 
 * `quantize_weight` / `quantize_act` / `quantize_act_with_scale`: the same
-  int8 values and scales, exactly.
+  int8 values and scales, exactly; so is `quantize_pack` (the plain version
+  of `csrc/quantize_pack.cu`), unpacked to NCHW, in fp32 and bf16, per
+  sample and with a scalar scale, at channel counts that are not a multiple
+  of 16 (its pad channels are 0).
 * `int8_conv2d`: bit for bit (fp32 and bf16 output) for every conv class the
   three generators give it (1x1, 3x3, 3x3 stride 2, 1x1 stride 2, 7x7 of 3
   channels, the folded 6x6 up-conv with input dilation 2, `flip_weight`
@@ -17,6 +20,9 @@
   JAX's amax at every site within 1e-6 relative.
 * The state_dict is the same under every mode; the quant_scales collection
   maps site by site; cli.test serves `--quant int8_static`.
+* Each conv module's cached int8 weight (`Int8WeightCache`) gives the
+  output of a module that builds it anew, bit for bit, and is rebuilt
+  after `load_state_dict`, an in-place update and a quant-mode switch.
 
 The generators' int8 forwards against JAX are in test_torch_quant_generators.py.
 """
@@ -99,6 +105,28 @@ def test_quantize_matches_jax_exactly():
     jx, _ = jq.quantize_act_with_scale(jnp.asarray(x), jnp.asarray(s))
     tx, _ = tq.quantize_act_with_scale(_nchw(x), torch.tensor(s))
     np.testing.assert_array_equal(_nhwc(tx), np.asarray(jx))
+
+
+@pytest.mark.parametrize("C", [21, 6, 32])
+@pytest.mark.parametrize("scale", ["per_sample", "scalar"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_pack_matches_jax_bit_for_bit(dtype, scale, C):
+    rng = np.random.default_rng(C)
+    x = (rng.standard_normal((3, 5, 7, C)) * np.array([1.0, 30.0, 1e-3])[:, None, None, None]).astype(np.float32)
+    jx = jnp.asarray(x).astype(getattr(jnp, dtype))
+    tx = _nchw(x).to(getattr(torch, dtype))
+    if scale == "per_sample":
+        ref, jsx = jq.quantize_act(jx)
+        xa = tq.quantize_activation(tx)
+        np.testing.assert_array_equal(xa.scale.numpy().reshape(-1), np.asarray(jsx).reshape(-1))
+    else:
+        ref, _ = jq.quantize_act_with_scale(jx, jnp.asarray(np.float32(0.0123)))
+        xa = tq.quantize_activation(tx, torch.tensor(np.float32(0.0123)))
+    cp = -(-C // 16) * 16
+    assert xa.q.dtype == torch.int8 and tuple(xa.q.shape) == (3, 5, 7, cp) and xa.channels == C
+    assert xa.q.is_contiguous() and not xa.q[..., C:].any()
+    np.testing.assert_array_equal(xa.q[..., :C].numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(xa.nchw().permute(0, 2, 3, 1).numpy(), np.asarray(ref))
 
 
 # (C, O, k, H, W, stride, padding (px0, px1, py0, py1), lhs_dilation, flip_weight)
@@ -285,3 +313,58 @@ def test_cli_serves_int8_static(tmp_path, capsys):
     assert "calibrated int8 activation scales on 1 batches" in capsys.readouterr().out
     with pytest.raises(SystemExit, match="no calibration batches"):
         cli.calibrate_int8_static(gen, torch.zeros(512), [])
+
+
+# ---------------------------------------------------------------- the weight cache
+
+
+def _int8_builds(module):
+    return sum(m.int8_weight.builds for m in module.modules() if isinstance(getattr(m, "int8_weight", None),
+                                                                            tq.Int8WeightCache))
+
+
+@pytest.mark.parametrize("name", ["resblock_down2", "spade_resblock", "synthesis_layer_up2"])
+def test_int8_weight_cache(name):
+    """The cached int8 weights give the output of a module that builds them
+    anew (a fresh copy with the same state), bit for bit; a second forward
+    builds nothing; `load_state_dict`, an in-place update of a weight and a
+    quant-mode switch each rebuild them."""
+    _, port, _, targs = _module_case(name)
+    torch.manual_seed(0)
+    port.eval()
+
+    def fresh():
+        _, m, _, _ = _module_case(name)
+        m.load_state_dict(port.state_dict())
+        tq.load_quant_scales(m, tq.quant_scales(port))
+        _set_quant(m, port_mode[0])
+        return m.eval()
+
+    port_mode = ["int8"]
+    with torch.no_grad():
+        _set_quant(port, "int8")
+        y1 = port(*targs)
+        n = _int8_builds(port)
+        assert n > 0
+        y2 = port(*targs)
+        assert _int8_builds(port) == n, "a second forward rebuilt a cached weight"
+        assert torch.equal(y1, y2) and torch.equal(y1, fresh()(*targs))
+
+        state = {k: v * 1.5 if k.endswith("weight") else v for k, v in port.state_dict().items()}
+        port.load_state_dict(state)
+        y3 = port(*targs)
+        assert _int8_builds(port) == 2 * n and not torch.equal(y3, y1)
+        assert torch.equal(y3, fresh()(*targs))
+
+        w = next(m.weight for m in port.modules() if isinstance(getattr(m, "int8_weight", None), tq.Int8WeightCache))
+        w.mul_(-1.0)
+        y4 = port(*targs)
+        assert _int8_builds(port) == 2 * n + 1 and torch.equal(y4, fresh()(*targs))
+
+        _set_quant(port, "int8_calib")
+        port(*targs)
+        _set_quant(port, "int8_static")
+        port_mode[0] = "int8_static"
+        y5 = port(*targs)
+        assert _int8_builds(port) == 4 * n + 1, "a quant-mode switch kept the weights of the other mode"
+        assert torch.equal(y5, fresh()(*targs))

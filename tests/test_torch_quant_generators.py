@@ -84,19 +84,19 @@ def _count_int8_convs(monkeypatch):
     """Record the class (kh, kw, C, O, stride, dilation) of every int8 conv
     either package runs."""
     convs = {"jax": [], "port": []}
-    jax_like, port_conv = jq.int8_conv_like, tq.int8_conv
+    jax_like, port_conv = jq.int8_conv_like, tq.int8_conv_packed
 
     def jax_spy(x, w, *, window_strides=(1, 1), lhs_dilation=None, **kw):
         convs["jax"].append(tuple(w.shape) + (window_strides[0], (lhs_dilation or (1, 1))[0]))
         return jax_like(x, w, window_strides=window_strides, lhs_dilation=lhs_dilation, **kw)
 
-    def port_spy(xq, wq, sx, sw, stride=1, padding_hw=((0, 0), (0, 0)), lhs_dilation=1, out_dtype=torch.bfloat16):
-        O, C, kh, kw = wq.shape
-        convs["port"].append((kh, kw, C, O, stride, lhs_dilation))
-        return port_conv(xq, wq, sx, sw, stride, padding_hw, lhs_dilation, out_dtype)
+    def port_spy(xa, pw, out_dtype=torch.bfloat16):
+        O, C, kh, kw = pw.wq.shape
+        convs["port"].append((kh, kw, C, O, pw.stride, pw.dilation))
+        return port_conv(xa, pw, out_dtype)
 
     monkeypatch.setattr(jq, "int8_conv_like", jax_spy)
-    monkeypatch.setattr(tq, "int8_conv", port_spy)
+    monkeypatch.setattr(tq, "int8_conv_packed", port_spy)
     return convs
 
 
