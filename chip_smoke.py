@@ -61,6 +61,18 @@ Phases, each fatal on failure:
    finite, G, D and G_ema must move, every grid PNG must decode at its
    shape.  It prints the Gmain+Dmain and R1 step times, sec/kimg, peak
    memory and a `torch.profiler` breakdown of one step.
+6b. Training-quality phase (`quality`, right after phase 6):
+   `cli.eval_run_snapshots` over phase 6's run directory (its full-width
+   G_ema snapshot scored on 64 held-out synthetic samples: fid_proxy under
+   the JAX package's seed-0 SimpleConvFeatures weights, recon L1, PSNR;
+   `quality_eval`), then `cli.quality_regression --quant int8_static` at its
+   defaults (30 thin training steps at batch 8, then the float and the
+   int8_static forward scored; `quality_regression`): every value finite,
+   the JAX tools' keys, each path's kernels launched; then norm_warp and
+   composite on one evaluation batch's self route, every up2/down2 class of
+   one evaluation forward and of one thin training step and every
+   int8_conv / quantize_pack class of the thin int8_static forward, each
+   against its plain version.
 7. ADA training phase (`training_ada`): the same run with `--aug ada --p 0.5`
    (the `bgc` pipe, the two-pass warp, stacked D calls, R1 through the
    pipe); besides the checks of phase 6, `Progress/augment_p` must follow
@@ -238,7 +250,11 @@ PATH_KERNELS = {"serving_full": FUSED, "serving_v18_fused": FUSED, "serving_v18_
                 "serving_512_int8_static": INT8, "training_transfer": FUSED,
                 # the stock generator's up-convs and image skips; the skip D's image pyramid; Generator512Plain's
                 # up-convs and image skips (no SPADE encoder, so no 1x1 down-conv); the conditional reals
-                "stock_forward": {"up2"}, "d_skip": {"down2"}, "plain_512": {"up2"}, "metrics_conditional": set()}
+                "stock_forward": {"up2"}, "d_skip": {"down2"}, "plain_512": {"up2"}, "metrics_conditional": set(),
+                # the training-quality tools: the held-out evaluation of the training run's snapshot (self routing
+                # and the fp32 forward); the quality-regression run (self routing, thin training steps, the
+                # int8_static calibration and forward)
+                "quality_eval": FUSED, "quality_regression": FUSED | {"int8_conv", "quantize_pack"}}
 FIXTURE = os.path.join("tests", "fixtures", "upt_mini")  # the UPT-layout fixture tree, relative to this script
 # the metrics phase: calc_metrics over the Full snapshot; a GeneratorFull forward launches up2 14 times and
 # down2 once (the serving path's counts), and calc_metric draws the generated source anew for each metric
@@ -397,7 +413,8 @@ def near_threshold_pixels(torch, wk, srcs, minv, valid, frame_hw, erode_parts):
     m = wk.denorm_warp_reference(srcs, minv, valid, frame_hw)[:, :, 3]
     near = ((m - wk.MASK_SATURATION_THRESHOLD).abs() <= NEAR).float()
     ero = [p for p, e in enumerate(erode_parts) if e]
-    near[:, ero] = F.max_pool2d(near[:, ero], 5, stride=1, padding=2)
+    if ero:  # the training path's self route erodes nothing
+        near[:, ero] = F.max_pool2d(near[:, ero], 5, stride=1, padding=2)
     return near.amax(dim=1) > 0
 
 
@@ -1716,12 +1733,99 @@ def train_batch(torch):
 
 
 def train_phase(torch, ck, tag, tmp):
-    """The noaug training path.  Returns the kernels' launch counts of its cli.train run."""
+    """The noaug training path.  Returns the kernels' launch counts of its
+    cli.train run and its run directory."""
     out, launches = run_cli_train(torch, ck, tag, tmp, "training", ["--aug", "noaug"])
     batch = train_batch(torch)
     step_times(torch, out, batch, tag, "training")
     profile_steps(torch, ck, out, batch, tag, "training", down2_classes=True)
     torch.backends.cudnn.allow_tf32 = False
+    return launches, out["run_dir"]
+
+
+# the keys of scripts/quality_regression.py's JSON line (with --quant) and of scripts/eval_run_snapshots.py's
+QUALITY_REGRESSION_KEYS = {"metric", "value", "unit", "recon_l1", "psnr_db", "steps", "samples", "train_s", "ada",
+                           "dtype", "seed_offset", "fid_proxy_quant", "quant_pixel_l1", "quant_mode"}
+EVAL_RUN_KEYS = {"snapshot", "fid_proxy", "recon_l1", "psnr_db", "samples"}
+EVAL_SAMPLES, EVAL_BATCH = 64, 8  # cli.eval_run_snapshots' defaults
+
+
+def finite_values(d, label):
+    bad = {k: v for k, v in d.items() if isinstance(v, float) and not math.isfinite(v)}
+    assert not bad, f"{label}: non-finite values {bad}"
+
+
+def quality_phase(torch, ck, tag, run_dir):
+    """The training-quality tools on the card: `cli.eval_run_snapshots` over
+    the training phase's run directory (its full-width G_ema snapshot over
+    64 held-out samples, fp32; `quality_eval`), then `cli.quality_regression`
+    at its defaults with `--quant int8_static` (30 thin steps at batch 8;
+    `quality_regression`), each with its launch counts set to 0 just before
+    it and read just after: every value finite, the JAX tools' keys.  Then
+    the kernels at this path's shapes against their plain versions:
+    norm_warp and composite on one batch-8 evaluation batch's self route,
+    every up2/down2 class of one evaluation forward and of one thin training
+    step, every int8_conv and quantize_pack class of one thin int8_static
+    forward.  Returns the two paths' launch counts."""
+    from pasta_gan_tpu_torch.cli import eval_run_snapshots, quality_regression
+    from pasta_gan_tpu_torch.cli.test import load_generator
+    from pasta_gan_tpu_torch.data.dataset import SyntheticUvitonDataset, collate
+    from pasta_gan_tpu_torch.data.warp import self_warp_inputs
+    from pasta_gan_tpu_torch.metrics import quality
+    from pasta_gan_tpu_torch.ops import warp_kernels as wk
+
+    torch.cuda.synchronize()
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    records = eval_run_snapshots.main([run_dir, "--samples", str(EVAL_SAMPLES), "--batch", str(EVAL_BATCH)])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = {"quality_eval": ck.launch_counts()}
+    snaps = sorted(n for n in os.listdir(run_dir) if n.startswith("network-snapshot-"))
+    assert [r["snapshot"] for r in records] == snaps and snaps, (records, snaps)
+    for r in records:
+        assert set(r) == EVAL_RUN_KEYS, sorted(r)
+        finite_values(r, "cli.eval_run_snapshots")
+    n_fwd = len(snaps) * (EVAL_SAMPLES // EVAL_BATCH)
+    check_launches("quality_eval", launches["quality_eval"],
+                   {"norm_warp": EVAL_SAMPLES // EVAL_BATCH, "composite": EVAL_SAMPLES // EVAL_BATCH,
+                    "up2": FORWARD_UP2 * n_fwd, "down2": FORWARD_DOWN2 * n_fwd})
+    print(f"quality_eval: {len(records)} snapshot(s) of {run_dir} over {EVAL_SAMPLES} held-out samples in "
+          f"{eval_s:.1f} s: {records}; launches {launches['quality_eval']} [{tag}]", flush=True)
+
+    ck.reset_launch_counts()
+    t0 = time.perf_counter()
+    qr = quality_regression.main(["--quant", "int8_static"])
+    torch.cuda.synchronize()
+    qr_s = time.perf_counter() - t0
+    launches["quality_regression"] = counts = ck.launch_counts()
+    line = qr["result"]
+    assert set(line) == QUALITY_REGRESSION_KEYS | {"device"}, sorted(line)
+    assert line["device"] == torch.cuda.get_device_name(0) and qr["state"].step == line["steps"] == 30
+    finite_values(line, "cli.quality_regression")
+    ran = {k for k, n in counts.items() if n > 0}
+    assert ran == PATH_KERNELS["quality_regression"], f"quality_regression launched {counts}"
+    print(f"quality_regression --quant int8_static: {line} in {qr_s:.1f} s; launches {counts} [{tag}]", flush=True)
+
+    # this path's shapes: the routing kernels at the evaluation batch, the FIR classes of the evaluation forward
+    # (fp32, full width) and of a thin training step, the int8 classes of the thin int8_static forward
+    ds = SyntheticUvitonDataset(num_samples=EVAL_BATCH, seed=123)
+    host = collate([ds[i] for i in range(EVAL_BATCH)])
+    image = torch.as_tensor(host["image"], device="cuda").float() / 255.0
+    um, lm = (torch.as_tensor(host[k], device="cuda").float() for k in ("upper_mask", "lower_mask"))
+    r = self_warp_inputs(image * um, image * lm, um, lm, torch.as_tensor(host["keypoints"], device="cuda").float())
+    _, out_p = norm_warp_case(torch, wk, ck, r, f"quality eval b{EVAL_BATCH}", tag, plain_iters=3)
+    composite_case(torch, wk, ck, out_p, r, f"quality eval b{EVAL_BATCH}", tag, plain_iters=3)
+    batch = quality.eval_batches(EVAL_BATCH, EVAL_BATCH, device="cuda")[0]
+    gen, _ = load_generator(os.path.join(run_dir, snaps[-1]), "cuda")
+    fir_classes_equal(torch, lambda: quality.eval_forward(gen, batch), "quality_eval forward (fp32)", tag)
+    del gen
+    trainer, state, batches = qr["trainer"], qr["state"], qr["batches"]
+    fir_classes_equal(torch, lambda: trainer.train_step(state, batches[0]), "quality_regression step", tag)
+    state.G_ema.quant = "int8_static"
+    int8_kernel_classes(torch, "quality_regression int8_static forward", state.G_ema, state.w_avg, batches[0], tag)
+    del qr, trainer, state, batches, batch
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -3803,7 +3907,8 @@ def main():
         cvc_log = os.path.join(tmp, "card_vs_cpu.log")
         cvc = start_card_vs_cpu(os.path.join(tmp, "snapshot.pt"), cvc_log)
         try:
-            launches["training"] = timed(train_phase, torch, ck, tag, tmp)
+            launches["training"], train_run = timed(train_phase, torch, ck, tag, tmp)
+            launches.update(timed(quality_phase, torch, ck, tag, train_run))
             launches["training_ada"] = timed(train_ada_phase, torch, ck, tag, tmp)
             launches["training_reg"] = timed(train_reg_phase, torch, ck, tag, tmp)
         except BaseException:

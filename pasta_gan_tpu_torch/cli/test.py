@@ -75,11 +75,12 @@ def load_generator(network: str, device="cuda", generator: Optional[str] = None)
 
 
 @torch.no_grad()
-def calibrate_int8_static(gen, w_avg, batches, truncation_psi: float = 1.0) -> None:
+def calibrate_int8_static(gen, w_avg, batches, truncation_psi: float = 1.0, noise_mode: str = "none") -> None:
     """int8_static serving: run the try-on forward in the "int8_calib" mode
     over `batches`, so that every activation site folds its per-tensor amax
     into its running `act_amax` (from zero), then freeze the scales:
-    `gen.quant` is "int8_static" on return."""
+    `gen.quant` is "int8_static" on return.  `noise_mode` as in
+    `tryon_forward` (the quality tools calibrate with "const")."""
     from ..ops.quant import reset_quant_scales
 
     if not batches:
@@ -90,14 +91,15 @@ def calibrate_int8_static(gen, w_avg, batches, truncation_psi: float = 1.0) -> N
     reset_quant_scales(gen)
     gen.quant = "int8_calib"
     for b in batches:
-        tryon_forward(gen, w_avg, b, truncation_psi)
+        tryon_forward(gen, w_avg, b, truncation_psi, noise_mode)
     gen.quant = "int8_static"
 
 
 @torch.no_grad()
-def tryon_forward(gen, w_avg, batch, truncation_psi: float = 1.0) -> torch.Tensor:
+def tryon_forward(gen, w_avg, batch, truncation_psi: float = 1.0, noise_mode: str = "none") -> torch.Tensor:
     """The explicit style / pose / mapping / synthesis calls; returns the
-    finetune image [B, H, W, 3] (NHWC) of either interface."""
+    finetune image [B, H, W, 3] (NHWC) of either interface.  Serving runs
+    without noise; "const" adds the fixed noise maps."""
     from ..models.generator_full import cat_feats_dict
 
     stylecode, feats = gen.encode_style(batch["style_input"], batch["retain"])
@@ -107,7 +109,7 @@ def tryon_forward(gen, w_avg, batch, truncation_psi: float = 1.0) -> torch.Tenso
         ws, pose_feat, cat_feats_dict(feats),
         batch["denorm_upper_img"], batch["denorm_lower_img"],
         batch["denorm_upper_mask"], batch["denorm_lower_mask"],
-        noise_mode="none",
+        noise_mode=noise_mode,
     )[1]
 
 

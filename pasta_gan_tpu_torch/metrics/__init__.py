@@ -2,7 +2,7 @@
 with pluggable extractors; InceptionV3 and VGG16/LPIPS as `nn.Module`s on the card."""
 
 from .detectors_manifest import DETECTORS, find_detector, verify_detector
-from .extractors import SimpleConvFeatures, TorchScriptDetector, default_extractor
+from .extractors import SimpleConvFeatures, TorchScriptDetector, default_extractor, jax_simpleconv
 from .feature_stats import FeatureStats, stats_cache_path
 from .formulas import (
     fid_from_stats,
@@ -12,6 +12,7 @@ from .formulas import (
     precision_recall_from_features,
     slerp,
 )
+from .quality import eval_batches, quality_metrics
 from .ppl import center_crop_for_ppl, compute_ppl, lpips_distance, vgg_feature_distance
 from .metric_main import (
     MetricOptions,

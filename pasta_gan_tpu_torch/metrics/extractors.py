@@ -12,6 +12,10 @@ a tensor) -> features [N, D] (a tensor on its device, or a numpy array);
   draws other weights than the JAX package's `jax.random` keys; its tag is
   its own.  `io/from_jax.py:simpleconv_state_dict_from_jax` carries the JAX
   weights across.
+* `jax_simpleconv`: SimpleConvFeatures with the JAX `SimpleConvFeatures(seed=0)`'s
+  weights, read from `simpleconv_jax_seed0.npz` beside this file (written by
+  `scripts/export_simpleconv_jax.py`): the extractor of the JAX records'
+  fid_proxy, and of `metrics/quality.py`.
 * `TorchScriptDetector`: the reference's TorchScript detector file, run on
   the given device.
 * `default_extractor`: InceptionV3 from a detector file, or
@@ -73,6 +77,23 @@ class SimpleConvFeatures(nn.Module):
             x = F.leaky_relu(x, 0.2)
         feat = torch.cat([x.mean(dim=(2, 3)), x.amax(dim=(2, 3))], dim=-1)
         return feat @ self.proj
+
+
+JAX_SIMPLECONV_SEED0 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "simpleconv_jax_seed0.npz")
+
+
+def jax_simpleconv(device="cuda") -> SimpleConvFeatures:
+    """SimpleConvFeatures carrying the JAX package's seed-0 weights
+    (`JAX_SIMPLECONV_SEED0`: kernel0..kernel3 HWIO and proj, float32); tagged
+    "simpleconv-jax-seed0"."""
+    from ..io.from_jax import simpleconv_state_dict_from_jax
+
+    ext = SimpleConvFeatures(device="cpu")
+    with np.load(JAX_SIMPLECONV_SEED0) as f:
+        sd = simpleconv_state_dict_from_jax([f[f"kernel{i}"] for i in range(4)], f["proj"], ext.state_dict())
+    ext.load_state_dict(sd, strict=True)
+    ext.tag = "simpleconv-jax-seed0"
+    return ext.to(resolve_device(device))
 
 
 class TorchScriptDetector:

@@ -39,6 +39,26 @@ class ConstEncoderNetwork(nn.Module):
         return self.proj(x) if self.proj is not None else x
 
 
+class FeatureEncoder(nn.Module):
+    """The reference's deep downsampling encoder (`networks.py:506-524`; the
+    JAX package's `nn/encoders.py:FeatureEncoder`): a 1x1 stem to `ngf`
+    channels, then `n_downsampling` stride-2 3x3 convs, channel schedule
+    128, 256, 256, 512, 512, 512, 512 at ngf 64.  No generator of the
+    registry builds it.  `output_nc` is kept for the reference's signature;
+    the schedule sets the output width."""
+
+    def __init__(self, input_nc, output_nc=512, ngf=64, n_downsampling=7):
+        super().__init__()
+        mult_ins = [1, 2, 4, 4, 8, 8, 8]
+        mult_outs = [2, 4, 4, 8, 8, 8, 8]
+        self.model = nn.Sequential(
+            Conv2dLayer(input_nc, ngf, 1),
+            *[Conv2dLayer(ngf * mult_ins[i], ngf * mult_outs[i], 3, down=2) for i in range(n_downsampling)])
+
+    def forward(self, x):
+        return self.model(x)
+
+
 class RetainFeatureEncoder(nn.ModuleList):
     """The `feat_enc` branch: 4 convs over the retain image yielding skip
     features at resolutions /1, /2, /4, /8."""

@@ -207,6 +207,20 @@ class MinibatchStdLayer(nn.Module):
         return torch.cat([x, y], dim=1)
 
 
+class SpaceToDepth(nn.Module):
+    """[N, C, H, W] -> [N, C*b*b, H/b, W/b] (reference `networks.py:583-591`):
+    each output channel c*b*b + i*b + j holds the input's channel c at offset
+    (i, j) of each b x b block, torch's unfold order (`pixel_unshuffle`).  No
+    parameters."""
+
+    def __init__(self, block_size: int = 2):
+        super().__init__()
+        self.block_size = block_size
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.block_size)
+
+
 class DenseNorm(Layer):
     """Linear over channels + InstanceNorm + LeakyReLU(0.01) (the reference's
     `Dense`; plain torch-style Linear parameters, not equalized-LR)."""

@@ -1,15 +1,147 @@
-"""Image grids of the training snapshots (counterpart of `pasta_gan_tpu/utils/__init__.py:
-save_image_grid`, `parsing_to_rgb` and its palette), written without PIL, and
-`open_url`, the reference's cached downloader (a copy of the JAX package's)."""
+"""Framework utilities (counterpart of `pasta_gan_tpu/utils/__init__.py`; the
+reference's `dnnlib/util.py` and `torch_utils/misc.py`): `EasyDict`, the
+stdout/stderr tee `Logger`, `assert_shape`, `print_module_summary`; the image
+grids of the training snapshots (`save_image_grid`, `parsing_to_rgb` and its
+palette), written without PIL; and `open_url`, the reference's cached
+downloader (a copy of the JAX package's)."""
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+import sys
+from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..data.image_io import write_png
+
+
+class EasyDict(dict):
+    """Attribute-access dict (reference `dnnlib/util.py:40-52`)."""
+
+    def __getattr__(self, name):
+        try:
+            return self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+
+    def __setattr__(self, name, value):
+        self[name] = value
+
+    def __delattr__(self, name):
+        del self[name]
+
+
+class Logger:
+    """stdout/stderr tee into a log file (reference `dnnlib/util.py:56-112`):
+    from construction on, everything written to either stream also goes to
+    `file_name`; `close()` restores both streams."""
+
+    def __init__(self, file_name: Optional[str] = None, mode: str = "w", should_flush: bool = True):
+        self.file = open(file_name, mode) if file_name is not None else None
+        self.should_flush = should_flush
+        self.stdout = sys.stdout
+        self.stderr = sys.stderr
+        sys.stdout = self
+        sys.stderr = self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def write(self, text) -> None:
+        if len(text) == 0:
+            return
+        if self.file is not None:
+            self.file.write(text)
+        self.stdout.write(text)
+        if self.should_flush:
+            self.flush()
+
+    def flush(self) -> None:
+        if self.file is not None:
+            self.file.flush()
+        self.stdout.flush()
+
+    def close(self) -> None:
+        self.flush()
+        if self.file is not None:
+            self.file.close()
+            self.file = None
+        if sys.stdout is self:
+            sys.stdout = self.stdout
+        if sys.stderr is self:
+            sys.stderr = self.stderr
+
+
+def assert_shape(tensor, ref_shape: Sequence[Optional[int]]) -> None:
+    """Inline shape contract (reference `torch_utils/misc.py:86-101`); None
+    entries are wildcards."""
+    if tensor.ndim != len(ref_shape):
+        raise AssertionError(f"wrong rank: got {tensor.ndim}, expected {len(ref_shape)}")
+    for idx, (size, ref) in enumerate(zip(tensor.shape, ref_shape)):
+        if ref is not None and int(size) != int(ref):
+            raise AssertionError(f"wrong size for dim {idx}: got {size}, expected {ref}")
+
+
+def print_module_summary(module: torch.nn.Module, *inputs, max_nesting: int = 3, skip_redundant: bool = True):
+    """The reference's summary table (`torch_utils/misc.py:201-269`): run
+    `module(*inputs)` with forward hooks on every submodule and print one row
+    per submodule call up to `max_nesting` deep, in the order the calls
+    return: its name, the parameters and buffers it holds that no earlier row
+    counted, its output's shape and dtype (`name:i` rows for a call's further
+    tensor outputs); rows that add nothing are skipped.  Returns the outputs."""
+    entries, nesting = [], [0]
+
+    def pre_hook(_mod, _inputs):
+        nesting[0] += 1
+
+    def post_hook(mod, _inputs, outputs):
+        nesting[0] -= 1
+        if nesting[0] <= max_nesting:
+            outputs = list(outputs) if isinstance(outputs, (tuple, list)) else [outputs]
+            entries.append(EasyDict(mod=mod, outputs=[t for t in outputs if isinstance(t, torch.Tensor)]))
+
+    hooks = [m.register_forward_pre_hook(pre_hook) for m in module.modules()]
+    hooks += [m.register_forward_hook(post_hook) for m in module.modules()]
+    try:
+        outputs = module(*inputs)
+    finally:
+        for h in hooks:
+            h.remove()
+
+    seen = set()
+    for e in entries:
+        e.params = [t for t in e.mod.parameters() if id(t) not in seen]
+        e.buffers = [t for t in e.mod.buffers() if id(t) not in seen]
+        e.new_outputs = [t for t in e.outputs if id(t) not in seen]
+        seen |= {id(t) for t in e.params + e.buffers + e.new_outputs}
+    if skip_redundant:
+        entries = [e for e in entries if e.params or e.buffers or e.new_outputs]
+
+    rows = [[type(module).__name__, "Parameters", "Buffers", "Output shape", "Datatype"], ["---"] * 5]
+    names = {m: name for name, m in module.named_modules()}
+    param_total = buffer_total = 0
+    for e in entries:
+        name = "<top-level>" if e.mod is module else names[e.mod]
+        n_params, n_buffers = sum(t.numel() for t in e.params), sum(t.numel() for t in e.buffers)
+        shapes = [str(list(t.shape)) for t in e.outputs]
+        dtypes = [str(t.dtype).split(".")[-1] for t in e.outputs]
+        rows.append([name + (":0" if len(e.outputs) >= 2 else ""), str(n_params) if n_params else "-",
+                     str(n_buffers) if n_buffers else "-", (shapes + ["-"])[0], (dtypes + ["-"])[0]])
+        rows += [[f"{name}:{i}", "-", "-", shapes[i], dtypes[i]] for i in range(1, len(e.outputs))]
+        param_total += n_params
+        buffer_total += n_buffers
+    rows += [["---"] * 5, ["Total", str(param_total), str(buffer_total), "-", "-"]]
+    widths = [max(len(cell) for cell in col) for col in zip(*rows)]
+    print()
+    for row in rows:
+        print("  ".join(cell + " " * (w - len(cell)) for cell, w in zip(row, widths)))
+    print()
+    return outputs
 
 
 def save_image_grid(images, path: str, drange=(-1, 1), grid_cols: Optional[int] = None) -> str:

@@ -219,7 +219,8 @@ def test_port_imports_no_jax_cv2_pil_or_jax_package():
         "metrics/__init__", "metrics/formulas", "metrics/feature_stats", "metrics/detectors_manifest",
         "metrics/inception", "metrics/vgg16", "metrics/extractors", "metrics/ppl", "metrics/metric_main",
         "cli/calc_metrics", "nn/flow", "models/generator_v1", "nn/patch_discriminator", "data/host_router",
-        "cli/dataset_tool", "cli/draw_point", "parallel/__init__", "parallel/mesh")}
+        "cli/dataset_tool", "cli/draw_point", "parallel/__init__", "parallel/mesh", "metrics/quality",
+        "cli/quality_regression", "cli/eval_run_snapshots", "nn/encoders", "nn/layers")}
     assert later_slices <= rel, sorted(later_slices - rel)
     bad = [(os.path.relpath(f, REPO), mod) for f in files for mod in _imports(f)
            if mod.split(".")[0] in FORBIDDEN]
